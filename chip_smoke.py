@@ -1,0 +1,236 @@
+"""Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (each prints one line; any failure raises and the exit code is
+non-zero):
+  1. device  — require CUDA, TF32 off, print the card's name and power limit;
+  2. build   — compile the two-NN matcher (csrc/two_nn.cu) with nvcc;
+  3. kernel  — the kernel against its plain PyTorch version on the card:
+               float32 distances to atol 1e-5 with identical indices (32
+               pairs × 1024, and a ragged 1000 × 1000 case with invalid
+               rows), bfloat16 ratio-test agreement with float32 > 0.99,
+               and both times at the main path's chunk shape;
+  4. main    — the calibrated driver on a rendered 48-frame 640×480 capture
+               (focal 512, 1024 keypoints, exhaustive matching of 1128
+               pairs); ATE < 0.05, median relative rotation error < 2°,
+               output files present, one matcher launch per 32-pair chunk.
+Then one JSON line describing the kernel, and last the result line
+{"ok": true, "device": {...}}. The script imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CHUNK = 32  # pairs per matcher launch on the main path
+
+
+def phase(phase_name: str, **info):
+    print(json.dumps({"phase": phase_name, **info}), flush=True)
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def descriptor_table(seed: int, pairs: int, K: int, noise: float = 0.05):
+    """Frame table for `pairs` pairs: frame b (train) against frame pairs+b
+    (queries: a permuted, noisy copy), unit-norm float32 descriptors."""
+    rng = np.random.default_rng(seed)
+    d0 = rng.normal(size=(pairs, K, 128)).astype(np.float32)
+    d0 /= np.linalg.norm(d0, axis=-1, keepdims=True)
+    d1 = d0[:, rng.permutation(K)] + rng.normal(size=(pairs, K, 128)).astype(np.float32) * noise
+    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
+    return np.concatenate([d0, d1]), torch.arange(pairs), torch.arange(pairs) + pairs
+
+
+def check_kernel(two_nn, reference, device="cuda"):
+    dev = torch.device(device)
+    worst = 0.0
+    cases = []
+    for name, pairs, K, drop in (("32x1024", 32, 1024, 0.0), ("ragged1000", 8, 1000, 0.05)):
+        desc, pi, pj = descriptor_table(len(cases), pairs, K)
+        rng = np.random.default_rng(10 + len(cases))
+        valid = rng.uniform(size=desc.shape[:2]) >= drop
+        desc_t = torch.as_tensor(desc, device=dev)
+        valid_t = torch.as_tensor(valid, device=dev)
+        pi, pj = pi.to(dev), pj.to(dev)
+        m1, m2, nn = two_nn(desc_t, valid_t, pi, pj, torch.float32)
+        r1, r2, rn = reference(desc_t, valid_t, pi, pj, torch.float32)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        vq = valid_t[pj]
+        err = max(float((m1[vq] - r1[vq]).abs().max()), float((m2[vq] - r2[vq]).abs().max()))
+        sep = vq & (r2 - r1 > 1e-5)
+        same_idx = bool(torch.equal(nn[sep], rn[sep]))
+        inv_ok = bool(torch.isinf(m1[~vq]).all() and torch.isinf(m2[~vq]).all())
+        if err > 1e-5 or not same_idx or not inv_ok:
+            raise AssertionError(f"kernel != plain version on {name}: max err {err}, "
+                                 f"indices equal {same_idx}, invalid queries inf {inv_ok}")
+        worst = max(worst, err)
+        cases.append((name, err))
+
+    # bf16 inputs against the f32 result: ratio-test decisions
+    desc, pi, pj = descriptor_table(7, 32, 1024)
+    desc_t = torch.as_tensor(desc, device=dev)
+    valid_t = torch.ones(desc.shape[:2], dtype=torch.bool, device=dev)
+    pi, pj = pi.to(dev), pj.to(dev)
+    f1, f2, fn_ = two_nn(desc_t, valid_t, pi, pj, torch.float32)
+    b1, b2, bn = two_nn(desc_t, valid_t, pi, pj, torch.bfloat16)
+    r2 = 0.75 * 0.75
+    acc_f = (f1 < r2 * f2) & torch.isfinite(f1)
+    acc_b = (b1 < r2 * b2) & torch.isfinite(b1)
+    # agreement of the accepted (pair, query, train) match sets: |∩| / |∪|
+    both = int((acc_f & acc_b & (fn_ == bn)).sum())
+    union = int(acc_f.sum()) + int(acc_b.sum()) - both
+    agree = both / max(union, 1)
+    if agree <= 0.99:
+        raise AssertionError(f"bf16 ratio-test agreement {agree:.4f} <= 0.99")
+    return dict(max_abs_err=worst, cases=cases, bf16_agreement=agree), (desc_t, valid_t, pi, pj)
+
+
+def time_kernel(two_nn, reference, args):
+    """Kernel and plain times at the main path's chunk shape, in turns
+    (plain, kernel, kernel, plain); the minimum of each pair is reported."""
+    desc_t, valid_t, pi, pj = args
+
+    # times at the main path's chunk shape (bf16, 32 pairs x 1024 x 1024)
+    plain_ms = cuda_ms(lambda: reference(desc_t, valid_t, pi, pj, torch.bfloat16))
+    ms = cuda_ms(lambda: two_nn(desc_t, valid_t, pi, pj, torch.bfloat16))
+    ms2 = cuda_ms(lambda: two_nn(desc_t, valid_t, pi, pj, torch.bfloat16))
+    plain_ms2 = cuda_ms(lambda: reference(desc_t, valid_t, pi, pj, torch.bfloat16))
+    return dict(ms=min(ms, ms2), plain_ms=min(plain_ms, plain_ms2),
+                ms_runs=[ms, ms2], plain_ms_runs=[plain_ms, plain_ms2])
+
+
+def run_main_path(two_nn, device="cuda", F=48, W=640, H=480):
+    from sphericalsfm_tpu_torch.config import PipelineConfig
+    from sphericalsfm_tpu_torch.eval.metrics import ate, rotation_error_deg
+    from sphericalsfm_tpu_torch.eval.render import render_capture
+    from sphericalsfm_tpu_torch.geometry.pose import Intrinsics
+    from sphericalsfm_tpu_torch.geometry.so3 import np_so3_exp
+    from sphericalsfm_tpu_torch.pipeline.driver import run_calibrated
+
+    focal = 0.8 * W
+    t0 = time.perf_counter()
+    cam_r, cam_t, gray, color = render_capture(num_frames=F, focal=focal, width=W, height=H,
+                                               wave_freq=25.0 * (W / 320), device=device)
+    render_s = time.perf_counter() - t0
+
+    cfg = PipelineConfig()
+    cfg.frontend.max_keypoints = 1024
+    cfg.frontend.max_matches_per_pair = 512
+    cfg.ransac.num_hypotheses = 512
+    cfg.ransac.min_num_inliers = 30
+    cfg.ba.max_iters = 60
+    pairs = F * (F - 1) // 2
+    chunks = math.ceil(pairs / CHUNK)
+    with tempfile.TemporaryDirectory() as out:
+        two_nn.launches = 0
+        t0 = time.perf_counter()
+        m = run_calibrated(None, Intrinsics(focal, W / 2.0, H / 2.0), out, cfg,
+                           gray=gray, color=color, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = two_nn.launches
+        missing = [f for f in ("poses.txt", "points.obj", "cameras.obj", "summary.json",
+                               "stages.jsonl", "frontend.npz", "sparse/model/cameras.txt",
+                               "sparse/model/images.txt", "sparse/model/points3D.txt")
+                   if not os.path.exists(os.path.join(out, f))]
+        stages = [json.loads(line) for line in open(os.path.join(out, "stages.jsonl"))]
+        with open(os.path.join(out, "summary.json")) as f:
+            summary = json.load(f)
+
+    R_gt = np_so3_exp(cam_r)
+    centers_gt = -np.einsum("cji,cj->ci", R_gt, cam_t)
+    err = float(ate(m.centers(), centers_gt))
+    R = np_so3_exp(m.cam_r)
+    rel = rotation_error_deg(np.einsum("nij,kj->nik", R, R[0]),
+                             np.einsum("nij,kj->nik", R_gt, R_gt[0])).numpy()
+    ba = {k: v for s in stages for k, v in s.items() if k.endswith("_final_cost")
+          or k.endswith("_initial_cost") or k.endswith("_iterations")}
+    info = dict(frames=F, size=f"{W}x{H}", pairs=pairs, wall_s=round(wall, 3),
+                render_s=round(render_s, 3), ate=err, median_rel_rot_deg=float(np.median(rel)),
+                points=int(m.point_valid().sum()), summary=summary, launches=launches,
+                expected_launches=chunks,
+                stage_s={s["stage"]: s["seconds"] for s in stages}, ba=ba)
+    phase("main", **info)
+    if missing:
+        raise AssertionError(f"outputs missing: {missing}")
+    if not err < 0.05:
+        raise AssertionError(f"ATE {err} >= 0.05")
+    if not np.median(rel) < 2.0:
+        raise AssertionError(f"median relative rotation error {np.median(rel)} >= 2 deg")
+    if launches != chunks:
+        raise AssertionError(f"matcher launched {launches} times, expected {chunks}")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — this smoke test needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from sphericalsfm_tpu_torch.device import resolve_device
+    from sphericalsfm_tpu_torch.ops import matching_kernel as mk
+
+    resolve_device("cuda")  # TF32 off
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    phase("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+          torch=torch.__version__, cuda=torch.version.cuda,
+          tf32=[torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32])
+
+    t0 = time.perf_counter()
+    lib = mk.build_library(verbose=True)
+    mk._load()
+    phase("build", seconds=round(time.perf_counter() - t0, 3), library=os.path.relpath(lib, ROOT))
+
+    k, args = check_kernel(mk.two_nearest_neighbors, mk.two_nn_reference)
+    k.update(time_kernel(mk.two_nearest_neighbors, mk.two_nn_reference, args))
+    phase("kernel", **k)
+
+    launches = run_main_path(mk.two_nearest_neighbors)
+
+    print(json.dumps({"kernels": [{
+        "name": "two_nn",
+        "route": "cuda",
+        "source": "sphericalsfm_tpu_torch/csrc/two_nn.cu",
+        "replaces": "sphericalsfm_tpu/ops/pallas_matching.py:32",
+        "launches": launches,
+        "max_abs_err": k["max_abs_err"],
+        "ms": k["ms"],
+        "plain_ms": k["plain_ms"],
+    }]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

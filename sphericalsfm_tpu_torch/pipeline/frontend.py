@@ -1,0 +1,123 @@
+"""Image frontend: frame loading, feature detection, exhaustive matching —
+port of `sphericalsfm_tpu/pipeline/frontend.py` (`FrameFeatures`,
+`load_frames`, `detect_features`, `match_pairs`, `_quantize_desc`,
+`_sample_colors`).
+
+Detection runs on the device in chunks of `cfg.detect_batch` frames;
+frames travel as uint8. The host copy of the descriptors is the
+SIFT-quantized uint8 ×512 form (what the `.npz` cache stores); the matcher
+reads the full-precision device copy (ROADMAP C7). Matching hands the
+frame-level descriptor table and the pair lists to the two-NN kernel in
+chunks of pairs — no gathered per-pair copies.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import FrontendConfig
+from ..ops.features import detect_batch
+from ..ops.matching import match_pairs_compact
+
+
+class FrameFeatures(NamedTuple):
+    """Fixed-shape per-capture feature tables (host numpy)."""
+
+    xy: np.ndarray           # (F, K, 2)
+    descriptor: np.ndarray   # (F, K, 128) float32
+    valid: np.ndarray        # (F, K)
+    color: np.ndarray        # (F, K, 3) uint8 (BGR)
+    counts: np.ndarray       # (F,)
+    width: int
+    height: int
+    # full-precision device copies from detect_features; None when the
+    # features came from a cache
+    descriptor_dev: object = None
+    valid_dev: object = None
+
+
+def load_frames(path: str, stride: int = 1, max_frames: int | None = None):
+    """Frames of a video or printf-style image pattern via cv2.VideoCapture
+    → (gray (F, H, W) float32 in [0, 1], color (F, H, W, 3) uint8)."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise IOError(f"could not read video/pattern: {path}")
+    grays, colors = [], []
+    i = 0
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        if i % stride == 0:
+            colors.append(frame)
+            grays.append(cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY))
+        i += 1
+        if max_frames is not None and len(grays) >= max_frames:
+            break
+    cap.release()
+    if not grays:
+        raise IOError(f"no frames decoded from {path}")
+    return np.stack(grays).astype(np.float32) / 255.0, np.stack(colors)
+
+
+def _quantize_desc(d: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(d * 512.0), 0, 255).to(torch.uint8)
+
+
+def _sample_colors(xy, valid, color, H, W):
+    F, K = valid.shape
+    if color is None:
+        return np.zeros((F, K, 3), np.uint8)
+    xi = np.clip(xy[..., 0].astype(np.int64), 0, W - 1)
+    yi = np.clip(xy[..., 1].astype(np.int64), 0, H - 1)
+    return color[np.arange(F)[:, None], yi, xi]
+
+
+def detect_features(gray: np.ndarray, color: np.ndarray | None = None,
+                    cfg: FrontendConfig = FrontendConfig(), batch: int | None = None,
+                    device="cpu") -> FrameFeatures:
+    """Detect features on every frame (F, H, W) on `device`."""
+    if cfg.detector != "tpu":
+        raise NotImplementedError(f"detector {cfg.detector!r} is not ported yet")
+    batch = batch or cfg.detect_batch
+    F, H, W = gray.shape
+    if gray.dtype != np.uint8:
+        gray = np.clip(gray * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    xy, quant, valid, desc = [], [], [], []
+    for s in range(0, F, batch):
+        imgs = torch.as_tensor(gray[s:s + batch], device=device)
+        f = detect_batch(imgs, max_keypoints=cfg.max_keypoints, num_octaves=cfg.num_octaves)
+        xy.append(f.xy)
+        quant.append(_quantize_desc(f.descriptor))
+        valid.append(f.valid)
+        desc.append(f.descriptor)
+    xy = torch.cat(xy).cpu().numpy()
+    valid_dev = torch.cat(valid)
+    valid_np = valid_dev.cpu().numpy()
+    return FrameFeatures(
+        xy=xy, descriptor=torch.cat(quant).cpu().numpy().astype(np.float32) / 512.0,
+        valid=valid_np, color=_sample_colors(xy, valid_np, color, H, W),
+        counts=valid_np.sum(axis=1).astype(np.int64), width=W, height=H,
+        descriptor_dev=torch.cat(desc), valid_dev=valid_dev)
+
+
+def match_pairs(feats: FrameFeatures, pair_i: np.ndarray, pair_j: np.ndarray,
+                cfg: FrontendConfig = FrontendConfig(), chunk: int = 32, device="cpu"):
+    """Ratio-test matching of the given frame pairs, `chunk` pairs per kernel
+    launch. Returns numpy (idx0, idx1, mask), each (P, max_matches_per_pair)."""
+    if feats.descriptor_dev is not None:
+        desc, valid = feats.descriptor_dev, feats.valid_dev
+    else:
+        desc = torch.as_tensor(feats.descriptor, device=device)
+        valid = torch.as_tensor(feats.valid, device=device)
+    pi = torch.as_tensor(np.asarray(pair_i, np.int32), device=desc.device)
+    pj = torch.as_tensor(np.asarray(pair_j, np.int32), device=desc.device)
+    outs = [match_pairs_compact(desc, valid, pi[s:s + chunk], pj[s:s + chunk],
+                                cfg.max_matches_per_pair, ratio=cfg.match_ratio)
+            for s in range(0, len(pair_i), chunk)]
+    return tuple(torch.cat([o[k] for o in outs]).cpu().numpy() for k in range(3))
