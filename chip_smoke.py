@@ -15,8 +15,23 @@ non-zero):
                (focal 512, 1024 keypoints, exhaustive matching of 1128
                pairs); ATE < 0.05, median relative rotation error < 2°,
                output files present, one matcher launch per 32-pair chunk.
-Then one JSON line describing the kernel, and last the result line
-{"ok": true, "device": {...}}. The script imports nothing of JAX.
+  5. uncalibrated — three sequences of the evaluation suite
+               (scripts/eval_suite.py) at their full 640×480 size through
+               the uncalibrated driver with windows matching, one line
+               each: base_f560_120, wide_f280_100 (focal 2× below the
+               (W+H)/2 guess) and out30_f560_120 (30% injected outlier
+               matches). Each must reach AUC@30 ≥ 98.8 against the
+               rendered ground truth, relative focal error < 1%,
+               ATE < 0.05, every output file, and one matcher launch per
+               32-pair chunk of its windows pairs.
+  6. modes   — the uncalibrated driver's other modes on a 24-frame
+               320×240 render (true focal 260, guess 280): five-point
+               pairwise and six-point focal within 15%, and a run from a
+               COLMAP database written by the port from its own frontend
+               within 5%.
+Then one JSON line describing the kernel (launches per phase), the card's
+name and power limit, and last the result line {"ok": true, "device":
+{...}}. The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +53,11 @@ CHUNK = 32  # pairs per matcher launch on the main path
 
 def phase(phase_name: str, **info):
     print(json.dumps({"phase": phase_name, **info}), flush=True)
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -187,6 +207,220 @@ def run_main_path(two_nn, device="cuda", F=48, W=640, H=480):
     return launches
 
 
+EVAL_W, EVAL_H = 640, 480
+EVAL_SEQUENCES = [  # scripts/eval_suite.py SEQUENCES, three of fourteen
+    dict(name="base_f560_120", focal=560.0, frames=120, seed=7),
+    dict(name="wide_f280_100", focal=280.0, frames=100, seed=11),
+    dict(name="out30_f560_120", focal=560.0, frames=120, seed=31, outliers=0.3),
+]
+UNCALIB_OUTPUTS = ("calib.txt", "focal_costs.txt", "summary.json", "stages.jsonl",
+                   "poses.txt", "points.obj", "cameras.obj") + tuple(
+    f"sparse/{d}/{f}" for d in ("pre-spherical-ba", "pre-general-ba", "final", "model")
+    for f in ("cameras.txt", "images.txt", "points3D.txt"))
+
+
+def eval_suite_config(width: int):
+    """scripts/eval_suite.py's per-sequence configuration."""
+    from sphericalsfm_tpu_torch.config import PipelineConfig
+
+    cfg = PipelineConfig()
+    cfg.general_ba = True
+    cfg.frontend.max_keypoints = 1024 if width >= 640 else 512
+    cfg.frontend.max_matches_per_pair = 512 if width >= 640 else 384
+    cfg.ransac.num_hypotheses = 512 if width >= 640 else 384
+    cfg.ransac.min_num_inliers = 30
+    cfg.focal.num_trials = 512
+    cfg.ba.max_iters = 100
+    return cfg
+
+
+def write_gt_model(gt_dir, cam_r, cam_t, focal, w, h):
+    """The rendered ground truth as a COLMAP text model, as the evaluation
+    suite writes it."""
+    from sphericalsfm_tpu_torch.geometry.so3 import np_so3_exp
+    from sphericalsfm_tpu_torch.io.colmap import rotmat_to_quat
+
+    os.makedirs(gt_dir, exist_ok=True)
+    Rs = np_so3_exp(np.asarray(cam_r, np.float64))
+    with open(os.path.join(gt_dir, "cameras.txt"), "w") as f:
+        f.write(f"1 SIMPLE_PINHOLE {w} {h} {focal} {w / 2} {h / 2}\n")
+    with open(os.path.join(gt_dir, "images.txt"), "w") as f:
+        for i in range(len(Rs)):
+            q = rotmat_to_quat(Rs[i])
+            t = cam_t[i]
+            f.write(f"{i + 1} {q[0]} {q[1]} {q[2]} {q[3]} {t[0]} {t[1]} {t[2]} 1 "
+                    f"{i:06d}.png\n\n")
+    open(os.path.join(gt_dir, "points3D.txt"), "w").close()
+
+
+def run_eval_sequence(spec, two_nn, out_root, device="cuda"):
+    """One evaluation-suite sequence through the port: render, frontend,
+    injected outliers, run_uncalibrated, evaluator. Returns (report,
+    failures)."""
+    from sphericalsfm_tpu_torch.eval.metrics import ate
+    from sphericalsfm_tpu_torch.eval.relpose_eval import evaluate_models
+    from sphericalsfm_tpu_torch.eval.render import render_capture
+    from sphericalsfm_tpu_torch.eval.synthetic import corrupt_match_table
+    from sphericalsfm_tpu_torch.geometry.so3 import np_so3_exp
+    from sphericalsfm_tpu_torch.pipeline.driver import (
+        StageLogger, run_frontend, run_uncalibrated,
+    )
+    from sphericalsfm_tpu_torch.pipeline.frontend import window_pairs
+
+    w, h = EVAL_W, EVAL_H
+    cam_r, cam_t, gray, color = render_capture(
+        num_frames=spec["frames"], arc=1.0, focal=spec["focal"], width=w, height=h,
+        seed=spec["seed"], n_waves=600, wave_freq=25.0 * w / 320.0, device=device)
+    out = os.path.join(out_root, spec["name"])
+    os.makedirs(out, exist_ok=True)
+    cfg = eval_suite_config(w)
+    cfg.frontend.matching = "windows"
+    pairs = len(window_pairs(spec["frames"], cfg.frontend.adjacent_window,
+                             cfg.graph.num_frames_begin, cfg.graph.num_frames_end)[0])
+
+    two_nn.launches = 0
+    t0 = time.perf_counter()
+    log = StageLogger(out)
+    log.sync = lambda: sync(device)
+    fr = run_frontend(None, cfg, log, gray, color, device=device)
+    if spec.get("outliers", 0.0) > 0:
+        fr = fr._replace(idx1=corrupt_match_table(fr.idx1, fr.mmask, fr.pair_j,
+                                                  fr.feats.counts, spec["outliers"],
+                                                  seed=spec["seed"]))
+    m, focal = run_uncalibrated(None, out, cfg, frontend=fr, image_size=(w, h),
+                                device=device)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = two_nn.launches
+
+    write_gt_model(os.path.join(out, "gt"), cam_r, cam_t, spec["focal"], w, h)
+    rep = evaluate_models(os.path.join(out, "sparse", "final"), os.path.join(out, "gt"))
+    Rg = np_so3_exp(cam_r)
+    rep.update(
+        sequence=spec["name"], frames=spec["frames"], outlier_frac=spec.get("outliers", 0.0),
+        focal_true=spec["focal"], focal_est=focal,
+        ate=float(ate(m.centers(), -np.einsum("cji,cj->ci", Rg, cam_t))),
+        wall_s=round(wall, 3), pairs=pairs, launches=launches,
+        expected_launches=math.ceil(pairs / CHUNK),
+        stage_s={s["stage"]: s["seconds"] for s in map(json.loads, open(
+            os.path.join(out, "stages.jsonl")))})
+    missing = [f for f in UNCALIB_OUTPUTS if not os.path.exists(os.path.join(out, f))]
+    failures = []
+    if not rep["AUC@30"] >= 98.8:
+        failures.append(f"AUC@30 {rep['AUC@30']} < 98.8")
+    if not abs(focal - spec["focal"]) / spec["focal"] < 0.01:
+        failures.append(f"focal {focal} not within 1% of {spec['focal']}")
+    if not rep["ate"] < 0.05:
+        failures.append(f"ATE {rep['ate']} >= 0.05")
+    if missing:
+        failures.append(f"outputs missing: {missing}")
+    if launches != rep["expected_launches"]:
+        failures.append(f"matcher launched {launches} times, expected "
+                        f"{rep['expected_launches']}")
+    return rep, failures
+
+
+def run_uncalibrated_phase(two_nn, device="cuda"):
+    """The evaluation-suite sequences; raises after all of them ran if any
+    missed a bound. Returns the phase's matcher launches."""
+    failed = {}
+    launches = 0
+    with tempfile.TemporaryDirectory() as out_root:
+        for spec in EVAL_SEQUENCES:
+            rep, failures = run_eval_sequence(spec, two_nn, out_root, device)
+            launches += rep["launches"]
+            phase("uncalibrated", **rep, failures=failures)
+            if failures:
+                failed[spec["name"]] = failures
+    if failed:
+        raise AssertionError(f"uncalibrated sequences failed: {failed}")
+    return launches
+
+
+def run_modes_phase(two_nn, device="cuda", F=24, W=320, H=240, focal=260.0):
+    """Five-point, six-point and COLMAP-database runs of the uncalibrated
+    driver on one small render, held to the bounds of the JAX package's
+    driver tests. Returns the phase's matcher launches."""
+    from sphericalsfm_tpu_torch.config import PipelineConfig
+    from sphericalsfm_tpu_torch.eval.render import render_capture
+    from sphericalsfm_tpu_torch.io.colmap import ColmapDatabase, write_database
+    from sphericalsfm_tpu_torch.pipeline.driver import (
+        StageLogger, run_frontend, run_uncalibrated,
+    )
+
+    _, _, gray, color = render_capture(num_frames=F, arc=1.0, focal=focal, width=W,
+                                       height=H, device=device)
+
+    def config(small: bool):
+        cfg = PipelineConfig()
+        cfg.frontend.max_keypoints = 384 if small else 512
+        cfg.frontend.max_matches_per_pair = 256 if small else 384
+        cfg.ransac.num_hypotheses = 128 if small else 384
+        cfg.ransac.min_num_inliers = 25 if small else 30
+        cfg.focal.num_trials = 128 if small else 256
+        cfg.ba.max_iters = 40 if small else 60
+        return cfg
+
+    def colmap_db(cfg, out):
+        fr = run_frontend(None, cfg, StageLogger(out), gray, color, device=device)
+        counts = fr.feats.counts
+        matches = {}
+        for p in range(len(fr.pair_i)):
+            mk = fr.mmask[p]
+            if mk.sum() >= 5:
+                matches[(int(fr.pair_i[p]), int(fr.pair_j[p]))] = np.stack(
+                    [fr.idx0[p][mk], fr.idx1[p][mk]], -1).astype(np.int32)
+        path = os.path.join(out, "features.db")
+        write_database(path, ColmapDatabase(
+            intrinsics=((W + H) / 2.0, W / 2.0, H / 2.0), width=W, height=H,
+            names=[f"frame{f:04d}.png" for f in range(F)],
+            keypoints=[fr.feats.xy[f][:counts[f]].astype(np.float32) for f in range(F)],
+            descriptors=[fr.feats.descriptor[f][:counts[f]] for f in range(F)],
+            matches=matches))
+        return path
+
+    failed = {}
+    launches = 0
+    for mode, bound in (("five_point", 0.15), ("six_point", 0.15), ("colmap_db", 0.05)):
+        cfg = config(small=mode != "colmap_db")
+        with tempfile.TemporaryDirectory() as out:
+            two_nn.launches = 0
+            t0 = time.perf_counter()
+            if mode == "colmap_db":
+                m, est = run_uncalibrated(None, out, cfg, colmap_db=colmap_db(cfg, out),
+                                          device=device)
+            else:
+                setattr(cfg, mode, True)
+                m, est = run_uncalibrated(None, out, cfg, gray=gray, color=color,
+                                          device=device)
+            sync(device)
+            wall = time.perf_counter() - t0
+            stages = [json.loads(line) for line in open(os.path.join(out, "stages.jsonl"))]
+            ok_files = all(os.path.exists(os.path.join(out, f))
+                           for f in ("calib.txt", "sparse/final/cameras.txt"))
+        err = abs(est - focal) / focal
+        fs = [s for s in stages if s["stage"] == "focal_search"][-1]
+        failures = []
+        if not err < bound:
+            failures.append(f"focal {est} not within {bound:.0%} of {focal}")
+        if not ok_files:
+            failures.append("calib.txt or sparse/final missing")
+        if mode == "six_point" and not fs.get("sixpoint", {}).get("pairs_used", 0) > 0:
+            failures.append("six-point RANSAC used no pairs")
+        if two_nn.launches == 0:
+            failures.append("matcher never launched")
+        launches += two_nn.launches
+        phase("modes", mode=mode, frames=F, size=f"{W}x{H}", focal_true=focal,
+              focal_est=est, focal_rel_err=err, bound=bound, wall_s=round(wall, 3),
+              launches=two_nn.launches, points=int(m.point_valid().sum()),
+              stage_s={s["stage"]: s["seconds"] for s in stages}, failures=failures)
+        if failures:
+            failed[mode] = failures
+    if failed:
+        raise AssertionError(f"modes failed: {failed}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke test needs "
@@ -213,14 +447,17 @@ def main() -> int:
     k.update(time_kernel(mk.two_nearest_neighbors, mk.two_nn_reference, args))
     phase("kernel", **k)
 
-    launches = run_main_path(mk.two_nearest_neighbors)
+    launches = {"main": run_main_path(mk.two_nearest_neighbors)}
+    launches["uncalibrated"] = run_uncalibrated_phase(mk.two_nearest_neighbors)
+    launches["modes"] = run_modes_phase(mk.two_nearest_neighbors)
 
     print(json.dumps({"kernels": [{
         "name": "two_nn",
         "route": "cuda",
         "source": "sphericalsfm_tpu_torch/csrc/two_nn.cu",
         "replaces": "sphericalsfm_tpu/ops/pallas_matching.py:32",
-        "launches": launches,
+        "launches": launches["main"],
+        "launches_by_phase": launches,
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

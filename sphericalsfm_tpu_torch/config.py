@@ -3,9 +3,9 @@ names and defaults as `sphericalsfm_tpu/config.py`, so a config written by
 the JAX package (`to_json`) loads into the port (`from_json`).
 
 Fields that select paths the port does not run yet (`devices > 1`,
-`frontend.matching = "windows"`, `frontend.detector = "opencv"`,
-`profile_dir`, `debug_reprojection`) are kept for JSON compatibility; the
-port's driver raises NotImplementedError when they are set.
+`frontend.detector = "opencv"`, `profile_dir`, `debug_reprojection`) are
+kept for JSON compatibility; the port's drivers raise NotImplementedError
+when they are set.
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Spherical essential-matrix construction and decomposition (port of
-`sphericalsfm_tpu/geometry/essential.py`, the calibrated path's part).
+`sphericalsfm_tpu/geometry/essential.py`).
 
 E = [t]_x R with t = R·e₃ − e₃ (negated when inward-facing); decomposition
 into the twisted-pair rotations R₁ = U D Vᵀ, R₂ = U Dᵀ Vᵀ, picked by
-alignment of the spherical translation with U·e₃.
+alignment of the spherical translation with U·e₃. Also the midpoint depth
+test of the cheirality votes and the focal conjugation E' = S·E·S of the
+uncalibrated focal search.
 """
 
 from __future__ import annotations
@@ -70,3 +72,32 @@ def decompose_spherical_essential(E: torch.Tensor, inward: bool = False):
     r = torch.where(pick1, so3_log(R1), so3_log(R2))
     t = torch.where(pick1, t1, t2)
     return r, t
+
+
+def _midpoint_depth_sign(R: torch.Tensor, t: torch.Tensor, u: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """z of the midpoint of the two rays u (camera at the origin) and Rᵀv
+    from the second camera's centre −Rᵀt, by the closed-form 2×2 normal
+    equations. Broadcasts over leading axes."""
+    Rt_v = torch.einsum("...ji,...j->...i", R, v)
+    c = -torch.einsum("...ji,...j->...i", R, t)
+    uu = torch.sum(u * u, dim=-1)
+    ww = torch.sum(Rt_v * Rt_v, dim=-1)
+    uw = torch.sum(u * Rt_v, dim=-1)
+    uc = torch.sum(u * c, dim=-1)
+    wc = torch.sum(Rt_v * c, dim=-1)
+    det = -uu * ww + uw * uw
+    det = torch.where(torch.abs(det) > 1e-18, det, torch.sign(det) * 1e-18 + 1e-30)
+    du = (-uc * ww + uw * wc) / det
+    dv = (uu * wc - uw * uc) / det
+    X = 0.5 * (u * du[..., None] + c + Rt_v * dv[..., None])
+    return X[..., 2]
+
+
+def conjugate_essential_by_focal(E: torch.Tensor, focal_ratio) -> torch.Tensor:
+    """E' = diag(s, s, 1) · E · diag(s, s, 1) with s = f/f₀: how an
+    essential matrix estimated at the focal guess f₀ reads at focal f.
+    `focal_ratio` broadcasts against E's leading axes."""
+    s = torch.as_tensor(focal_ratio, dtype=E.dtype, device=E.device)
+    d = torch.stack([s, s, torch.ones_like(s)], dim=-1)
+    return E * d[..., :, None] * d[..., None, :]

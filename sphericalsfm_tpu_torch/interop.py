@@ -15,6 +15,7 @@ import torch
 
 from .config import PipelineConfig
 from .device import GEOM_DTYPE
+from .io.colmap import ColmapDatabase
 from .optim.ba import BAProblem
 from .optim.pose_graph import RotationGraph
 from .pipeline.driver import FrontendResult
@@ -65,3 +66,25 @@ def rotation_graph_from_numpy(edge_i, edge_j, r_meas, edge_w, device="cpu") -> R
         edge_j=torch.as_tensor(np.array(edge_j, np.int64), device=dev),
         r_meas=torch.as_tensor(np.array(r_meas, np.float64), device=dev),
         edge_w=torch.as_tensor(np.array(edge_w, np.float64), device=dev))
+
+
+def focal_search_inputs_from_numpy(E_mats, edge_i, edge_j, edge_w, focals, device="cpu"):
+    """The focal sweep's inputs (pairwise essential matrices, edge list,
+    edge weights, focal hypotheses) → float64 / int64 tensors, in the
+    argument order of `loop_constraint_costs` less `focal_guess`."""
+    dev = torch.device(device)
+    return (torch.as_tensor(np.array(focals, np.float64), device=dev),
+            torch.as_tensor(np.array(E_mats, np.float64), device=dev),
+            torch.as_tensor(np.array(edge_i, np.int64), device=dev),
+            torch.as_tensor(np.array(edge_j, np.int64), device=dev),
+            torch.as_tensor(np.array(edge_w, np.float64), device=dev))
+
+
+def colmap_database_from_numpy(db) -> ColmapDatabase:
+    """A JAX ColmapDatabase (or any object with its fields) → the port's."""
+    return ColmapDatabase(
+        intrinsics=tuple(float(x) for x in db.intrinsics), width=int(db.width),
+        height=int(db.height), names=list(db.names),
+        keypoints=[np.asarray(k, np.float32) for k in db.keypoints],
+        descriptors=[np.asarray(d, np.float32) for d in db.descriptors],
+        matches={(int(i), int(j)): np.asarray(m, np.int32) for (i, j), m in db.matches.items()})

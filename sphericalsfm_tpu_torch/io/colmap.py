@@ -1,11 +1,16 @@
-"""COLMAP text-model writer — port of `write_colmap_text` and
-`rotmat_to_quat` from `sphericalsfm_tpu/io/colmap.py`. Byte-compatible
-with the JAX package's files: one shared SIMPLE_PINHOLE camera,
-observations re-centred at the principal point, 1-based ids."""
+"""COLMAP interop — port of `sphericalsfm_tpu/io/colmap.py`: the text-model
+writer (byte-compatible with the JAX package's files: one shared
+SIMPLE_PINHOLE camera, observations re-centred at the principal point,
+1-based ids), the text-model reader of the relative-pose evaluator, and
+the SQLite feature database (pair_id = id1·2147483647 + id2) through the
+standard library's `sqlite3`. The binary model reader is not ported yet.
+"""
 
 from __future__ import annotations
 
 import os
+import sqlite3
+from typing import NamedTuple
 
 import numpy as np
 
@@ -31,6 +36,16 @@ def rotmat_to_quat(R: np.ndarray) -> np.ndarray:
     s = np.sqrt(1.0 - R[0, 0] - R[1, 1] + R[2, 2]) * 2
     return np.array([(R[1, 0] - R[0, 1]) / s, (R[0, 2] + R[2, 0]) / s,
                      (R[1, 2] + R[2, 1]) / s, 0.25 * s])
+
+
+def quat_to_rotmat(q: np.ndarray) -> np.ndarray:
+    """(w, x, y, z) → (3, 3); the quaternion need not be unit."""
+    w, x, y, z = q / np.linalg.norm(q)
+    return np.array([
+        [1 - 2 * y * y - 2 * z * z, 2 * x * y - 2 * z * w, 2 * x * z + 2 * y * w],
+        [2 * x * y + 2 * z * w, 1 - 2 * x * x - 2 * z * z, 2 * y * z - 2 * x * w],
+        [2 * x * z - 2 * y * w, 2 * y * z + 2 * x * w, 1 - 2 * x * x - 2 * y * y],
+    ])
 
 
 def write_colmap_text(sfm_map, sparse_dir: str, width: int, height: int):
@@ -79,3 +94,183 @@ def write_colmap_text(sfm_map, sparse_dir: str, width: int, height: int):
             track = " ".join(f"{im} {k}" for im, k in point_obs[int(j)])
             f.write(f"{j + 1} {X[0]:.6f} {X[1]:.6f} {X[2]:.6f} "
                     f"{int(col[0])} {int(col[1])} {int(col[2])} 0 {track}\n")
+
+
+class ColmapModel(NamedTuple):
+    cameras: dict     # camera_id -> dict(model, width, height, params)
+    images: dict      # image_id -> dict(name, q (wxyz), t, camera_id, xys, point3D_ids)
+    points: dict      # point3D_id -> dict(xyz, rgb, track)
+
+
+def read_colmap_text(sparse_dir: str) -> ColmapModel:
+    """cameras.txt / images.txt / points3D.txt (points optional)."""
+    cameras = {}
+    with open(os.path.join(sparse_dir, "cameras.txt")) as f:
+        for line in f:
+            if line.startswith("#") or not line.strip():
+                continue
+            el = line.split()
+            cameras[int(el[0])] = dict(model=el[1], width=int(el[2]), height=int(el[3]),
+                                       params=np.array([float(x) for x in el[4:]]))
+    images = {}
+    with open(os.path.join(sparse_dir, "images.txt")) as f:
+        lines = [ln for ln in f if not ln.startswith("#")]
+    for a in range(0, len(lines) - 1, 2):
+        el = lines[a].split()
+        if len(el) < 10:
+            continue
+        data = lines[a + 1].split()
+        xys = np.array([[float(data[k]), float(data[k + 1])] for k in range(0, len(data), 3)]
+                       ) if data else np.zeros((0, 2))
+        pids = np.array([int(data[k + 2]) for k in range(0, len(data), 3)], np.int64
+                        ) if data else np.zeros(0, np.int64)
+        images[int(el[0])] = dict(q=np.array([float(x) for x in el[1:5]]),
+                                  t=np.array([float(x) for x in el[5:8]]),
+                                  camera_id=int(el[8]), name=el[9], xys=xys, point3D_ids=pids)
+    points = {}
+    pts_path = os.path.join(sparse_dir, "points3D.txt")
+    if os.path.exists(pts_path):
+        with open(pts_path) as f:
+            for line in f:
+                if line.startswith("#") or not line.strip():
+                    continue
+                el = line.split()
+                points[int(el[0])] = dict(
+                    xyz=np.array([float(x) for x in el[1:4]]),
+                    rgb=np.array([int(x) for x in el[4:7]], np.uint8),
+                    track=np.array([int(x) for x in el[8:]], np.int64).reshape(-1, 2))
+    return ColmapModel(cameras=cameras, images=images, points=points)
+
+
+MAX_IMAGE_ID = 2147483647
+
+_SCHEMA = """
+CREATE TABLE IF NOT EXISTS cameras (
+    camera_id INTEGER PRIMARY KEY AUTOINCREMENT NOT NULL,
+    model INTEGER NOT NULL, width INTEGER NOT NULL, height INTEGER NOT NULL,
+    params BLOB, prior_focal_length INTEGER NOT NULL);
+CREATE TABLE IF NOT EXISTS images (
+    image_id INTEGER PRIMARY KEY AUTOINCREMENT NOT NULL,
+    name TEXT NOT NULL UNIQUE, camera_id INTEGER NOT NULL,
+    prior_qw REAL, prior_qx REAL, prior_qy REAL, prior_qz REAL,
+    prior_tx REAL, prior_ty REAL, prior_tz REAL);
+CREATE TABLE IF NOT EXISTS keypoints (
+    image_id INTEGER PRIMARY KEY NOT NULL,
+    rows INTEGER NOT NULL, cols INTEGER NOT NULL, data BLOB);
+CREATE TABLE IF NOT EXISTS descriptors (
+    image_id INTEGER PRIMARY KEY NOT NULL,
+    rows INTEGER NOT NULL, cols INTEGER NOT NULL, data BLOB);
+CREATE TABLE IF NOT EXISTS matches (
+    pair_id INTEGER PRIMARY KEY NOT NULL,
+    rows INTEGER NOT NULL, cols INTEGER NOT NULL, data BLOB);
+CREATE TABLE IF NOT EXISTS two_view_geometries (
+    pair_id INTEGER PRIMARY KEY NOT NULL,
+    rows INTEGER NOT NULL, cols INTEGER NOT NULL, data BLOB,
+    config INTEGER NOT NULL, F BLOB, E BLOB, H BLOB, qvec BLOB, tvec BLOB);
+"""
+
+
+def pair_id_to_image_ids(pair_id: int):
+    id2 = pair_id % MAX_IMAGE_ID
+    return (pair_id - id2) // MAX_IMAGE_ID, id2
+
+
+def image_ids_to_pair_id(id1: int, id2: int) -> int:
+    if id1 > id2:
+        id1, id2 = id2, id1
+    return id1 * MAX_IMAGE_ID + id2
+
+
+class ColmapDatabase(NamedTuple):
+    """In-memory view of a COLMAP feature database."""
+
+    intrinsics: tuple          # (focal, cx, cy) of the first camera
+    width: int
+    height: int
+    names: list                # image names, ordered by image_id
+    keypoints: list            # per image (N, 2) float32 pixel coords
+    descriptors: list          # per image (N, 128) float32 (raw uint8 values)
+    matches: dict              # (idx_i, idx_j) -> (M, 2) int32 index pairs
+
+
+def read_database(path: str, use_two_view_geometry: bool = True) -> ColmapDatabase:
+    """Cameras, images, keypoints, descriptors and two-view matches of a
+    COLMAP database (SIMPLE_PINHOLE assumed); the verified two-view
+    geometries when present, else the raw matches table."""
+    con = sqlite3.connect(path)
+    try:
+        cur = con.cursor()
+        cam = cur.execute("SELECT camera_id, model, width, height, params FROM cameras"
+                          ).fetchone()
+        if cam is None:
+            raise ValueError(f"no cameras in {path}")
+        focal, cx, cy = np.frombuffer(cam[4], np.float64)[:3]
+        rows = cur.execute("SELECT image_id, name FROM images ORDER BY image_id").fetchall()
+        id_to_idx = {r[0]: k for k, r in enumerate(rows)}
+
+        keypoints = [np.zeros((0, 2), np.float32) for _ in rows]
+        for img_id, r, c, blob in cur.execute(
+                "SELECT image_id, rows, cols, data FROM keypoints"):
+            if img_id in id_to_idx and r:
+                keypoints[id_to_idx[img_id]] = np.frombuffer(blob, np.float32).reshape(
+                    r, c)[:, :2].copy()
+        descriptors = [np.zeros((0, 128), np.float32) for _ in rows]
+        for img_id, r, c, blob in cur.execute(
+                "SELECT image_id, rows, cols, data FROM descriptors"):
+            if img_id in id_to_idx and r:
+                descriptors[id_to_idx[img_id]] = np.frombuffer(blob, np.uint8).reshape(
+                    r, c).astype(np.float32)
+
+        table = "two_view_geometries" if use_two_view_geometry else "matches"
+        try:
+            match_rows = list(cur.execute(f"SELECT pair_id, rows, cols, data FROM {table}"))
+        except sqlite3.OperationalError:
+            match_rows = []
+        if not match_rows and table != "matches":
+            match_rows = list(cur.execute("SELECT pair_id, rows, cols, data FROM matches"))
+        matches = {}
+        for pair_id, r, c, blob in match_rows:
+            if r == 0 or blob is None:
+                continue
+            id1, id2 = pair_id_to_image_ids(pair_id)
+            if id1 in id_to_idx and id2 in id_to_idx:
+                arr = np.frombuffer(blob, np.uint32).reshape(r, c).astype(np.int32)
+                matches[(id_to_idx[id1], id_to_idx[id2])] = arr[:, :2]
+    finally:
+        con.close()
+    return ColmapDatabase(intrinsics=(float(focal), float(cx), float(cy)), width=int(cam[2]),
+                          height=int(cam[3]), names=[r[1] for r in rows],
+                          keypoints=keypoints, descriptors=descriptors, matches=matches)
+
+
+def write_database(path: str, db: ColmapDatabase):
+    """Create the COLMAP schema and insert cameras, images, keypoints,
+    descriptors (clipped to uint8) and matches."""
+    con = sqlite3.connect(path)
+    try:
+        cur = con.cursor()
+        cur.executescript(_SCHEMA)
+        cur.execute("INSERT INTO cameras (camera_id, model, width, height, params, "
+                    "prior_focal_length) VALUES (1, 0, ?, ?, ?, 0)",
+                    (db.width, db.height, np.array(db.intrinsics, np.float64).tobytes()))
+        for k, name in enumerate(db.names):
+            cur.execute("INSERT INTO images (image_id, name, camera_id) VALUES (?, ?, 1)",
+                        (k + 1, name))
+            kp = np.asarray(db.keypoints[k], np.float32)
+            kp6 = np.zeros((kp.shape[0], 6), np.float32)
+            kp6[:, :2] = kp
+            kp6[:, 2] = 1.0
+            cur.execute("INSERT INTO keypoints (image_id, rows, cols, data) VALUES (?, ?, ?, ?)",
+                        (k + 1, kp6.shape[0], 6, kp6.tobytes()))
+            if db.descriptors and len(db.descriptors[k]):
+                d = np.clip(np.asarray(db.descriptors[k]), 0, 255).astype(np.uint8)
+                cur.execute("INSERT INTO descriptors (image_id, rows, cols, data) "
+                            "VALUES (?, ?, ?, ?)", (k + 1, d.shape[0], d.shape[1], d.tobytes()))
+        for (i, j), m in db.matches.items():
+            arr = np.asarray(m, np.uint32)
+            cur.execute("INSERT OR REPLACE INTO matches (pair_id, rows, cols, data) "
+                        "VALUES (?, ?, ?, ?)",
+                        (image_ids_to_pair_id(i + 1, j + 1), arr.shape[0], 2, arr.tobytes()))
+        con.commit()
+    finally:
+        con.close()

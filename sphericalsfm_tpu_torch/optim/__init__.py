@@ -1,4 +1,5 @@
-"""Port of sphericalsfm_tpu/optim: batched LM, rotation averaging, dense-Schur BA."""
+"""Port of sphericalsfm_tpu/optim: batched LM, rotation averaging, the
+uncalibrated pose graph and focal search, dense-Schur BA."""
 
 from .ba import BAProblem, BAResult, ba_cost, build_tracks, bundle_adjust
 from .lm import (
@@ -6,7 +7,9 @@ from .lm import (
     trivial_rho, trivial_weight,
 )
 from .pose_graph import (
-    RotationGraph, build_spanning_tree, initialize_rotations_global,
-    initialize_rotations_sequential, initialize_rotations_tree, optimize_rotations,
-    pose_graph_cost,
+    RotationGraph, build_spanning_tree, decompose_rotation_xy_z, find_best_focal_bracketed,
+    find_best_focal_grid, find_best_focal_random, initialize_rotations_global,
+    initialize_rotations_sequential, initialize_rotations_tree, loop_constraint_costs,
+    optimize_rotations, optimize_rotations_and_focal, pose_graph_cost, rotations_at_focal,
+    total_rotation_costs, warp_thetaxy,
 )

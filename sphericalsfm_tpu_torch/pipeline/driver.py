@@ -1,14 +1,25 @@
-"""The calibrated reconstruction driver — port of
-`sphericalsfm_tpu/pipeline/driver.py::run_calibrated` (the reference's
-run_spherical_sfm, through its intended full path): detect, match, pairwise
-spherical RANSAC, triplet filter and rotation averaging, track building and
-retriangulation, spherical BA ×2 with retriangulation, general BA ×2 with
-normalization, and the OBJ / poses / COLMAP / summary writers.
+"""The reconstruction drivers — port of `sphericalsfm_tpu/pipeline/driver.py`.
 
-`device=None` means CUDA and raises when no card is present; the CPU path
-runs only when the caller passes `device="cpu"`. Random streams come from
-`torch.Generator`s seeded where the JAX driver seeds `PRNGKey(0)` (pairwise
-RANSAC) and folds in 1, 2, 3 (the three retriangulations).
+* `run_calibrated` (the reference's run_spherical_sfm, through its intended
+  full path): detect, match, pairwise spherical RANSAC, triplet filter and
+  rotation averaging, track building and retriangulation, spherical BA ×2
+  with retriangulation, general BA ×2 with normalization, and the OBJ /
+  poses / COLMAP / summary writers.
+* `run_uncalibrated` (run_spherical_sfm_uncalib, the shared-focal method):
+  features from frames or a COLMAP database, pairwise at the focal guess
+  (W+H)/2 (spherical 3-point, or general 5-point), largest connected
+  component, focal search (random / grid / bracketed sweep over the
+  pose-graph cost, or 6-point shared-focal RANSAC), joint rotations + focal
+  refinement, spherical BA with free focal, optional general BA, staged
+  COLMAP models.
+
+Matching is exhaustive or, with `cfg.frontend.matching="windows"`, the O(F)
+adjacent band plus the begin/end loop-closure windows. `device=None` means
+CUDA and raises when no card is present; the CPU path runs only when the
+caller passes `device="cpu"`. Random streams come from `torch.Generator`s
+seeded where the JAX driver seeds `PRNGKey(0)` (pairwise RANSAC) and folds
+in 1, 2, 3 (the three retriangulations), 10 (the focal search) and 11 (the
+six-point RANSAC).
 """
 
 from __future__ import annotations
@@ -23,13 +34,18 @@ import torch
 
 from ..config import PipelineConfig
 from ..device import GEOM_DTYPE, generator, resolve_device
+from ..geometry.essential import make_spherical_essential
 from ..geometry.pose import Intrinsics
+from ..geometry.so3 import so3_exp
+from ..io.colmap import read_database
 from ..optim.pose_graph import (
-    RotationGraph, initialize_rotations_global, initialize_rotations_sequential,
-    optimize_rotations,
+    RotationGraph, find_best_focal_bracketed, find_best_focal_grid, find_best_focal_random,
+    initialize_rotations_global, initialize_rotations_sequential, optimize_rotations,
+    optimize_rotations_and_focal, rotations_at_focal,
 )
-from .frontend import FrameFeatures, detect_features, load_frames, match_pairs
-from .pairwise import all_pairs, estimate_pairwise
+from ..ransac.sixpoint import estimate_focal_sixpoint
+from .frontend import FrameFeatures, detect_features, load_frames, match_pairs, window_pairs
+from .pairwise import all_pairs, estimate_pairwise, estimate_pairwise_five_point, pad_match_table
 from .sfm import SfMMap
 from .tracks import build_feature_tracks, filter_triplet_cycles, largest_connected_component
 
@@ -77,7 +93,6 @@ class FrontendResult(NamedTuple):
 def _check_supported(cfg: PipelineConfig):
     unported = {
         "cfg.devices > 1 (multi-device)": int(cfg.devices or 0) > 1,
-        "cfg.frontend.matching='windows'": cfg.frontend.matching != "exhaustive",
         "cfg.frontend.detector='opencv'": cfg.frontend.detector != "tpu",
         "cfg.profile_dir": bool(cfg.profile_dir),
         "cfg.debug_reprojection": bool(cfg.debug_reprojection),
@@ -89,9 +104,11 @@ def _check_supported(cfg: PipelineConfig):
 
 def run_frontend(video: str | None, cfg: PipelineConfig, log: StageLogger,
                  gray: np.ndarray | None = None, color: np.ndarray | None = None,
-                 cache_path: str | None = None, device="cpu") -> FrontendResult:
-    """Frames → features → exhaustive matches, with an `.npz` checkpoint:
-    a later run with the same `cache_path` resumes past matching."""
+                 cache_path: str | None = None, device=None) -> FrontendResult:
+    """Frames → features → matches (exhaustive, or the windows pairs), with
+    an `.npz` checkpoint: a later run with the same `cache_path` resumes
+    past matching. Detection and matching run on `device` (None: CUDA)."""
+    device = resolve_device(device)
     if cache_path and os.path.exists(cache_path):
         log.start("load_frontend_cache")
         z = np.load(cache_path)
@@ -116,7 +133,11 @@ def run_frontend(video: str | None, cfg: PipelineConfig, log: StageLogger,
     log.end(keypoints=int(feats.counts.sum()), mean_per_frame=float(feats.counts.mean()))
 
     log.start("match_pairs")
-    pair_i, pair_j = all_pairs(len(gray))
+    if cfg.frontend.matching == "windows":
+        pair_i, pair_j = window_pairs(len(gray), cfg.frontend.adjacent_window,
+                                      cfg.graph.num_frames_begin, cfg.graph.num_frames_end)
+    else:
+        pair_i, pair_j = all_pairs(len(gray))
     idx0, idx1, mmask = match_pairs(feats, pair_i, pair_j, cfg.frontend, device=device)
     log.end(pairs=len(pair_i), matches=int(mmask.sum()), mode=cfg.frontend.matching)
     fr = FrontendResult(feats, pair_i, pair_j, idx0, idx1, mmask)
@@ -244,6 +265,189 @@ def run_calibrated(video: str | None, intrinsics: Intrinsics, output_dir: str,
     _write_outputs(m, output_dir, fr)
     log.end()
     return m
+
+
+def _frontend_from_database(path: str, max_matches: int) -> FrontendResult:
+    """A COLMAP database → FrontendResult: keypoints padded to the longest
+    image, descriptors L2-normalized, matches padded per pair in (i, j)
+    order."""
+    db = read_database(path)
+    F = len(db.names)
+    Kmax = max(len(k) for k in db.keypoints)
+    xy = np.zeros((F, Kmax, 2))
+    valid = np.zeros((F, Kmax), bool)
+    desc = np.zeros((F, Kmax, 128), np.float32)
+    for f in range(F):
+        k = len(db.keypoints[f])
+        xy[f, :k] = db.keypoints[f]
+        valid[f, :k] = True
+        if len(db.descriptors[f]):
+            d = db.descriptors[f]
+            desc[f, :k] = d / np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-9)
+    feats = FrameFeatures(xy=xy, descriptor=desc, valid=valid,
+                          color=np.zeros((F, Kmax, 3), np.uint8),
+                          counts=valid.sum(1).astype(np.int64), width=db.width,
+                          height=db.height)
+    items = sorted(db.matches.items())
+    pair_i = np.asarray([p[0][0] for p in items], np.int32)
+    pair_j = np.asarray([p[0][1] for p in items], np.int32)
+    idx0, idx1, mmask = pad_match_table([(m[:, 0], m[:, 1]) for _, m in items], max_matches)
+    return FrontendResult(feats, pair_i, pair_j, idx0, idx1, mmask)
+
+
+def run_uncalibrated(video: str | None, output_dir: str, cfg: PipelineConfig | None = None,
+                     colmap_db: str | None = None, gray: np.ndarray | None = None,
+                     color: np.ndarray | None = None, frontend: FrontendResult | None = None,
+                     image_size: tuple | None = None, device=None) -> tuple:
+    """The uncalibrated shared-focal pipeline. Returns (SfMMap, focal)."""
+    cfg = cfg or PipelineConfig()
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    os.makedirs(output_dir, exist_ok=True)
+    log = StageLogger(output_dir)
+    if dev.type == "cuda":
+        log.sync = torch.cuda.synchronize
+
+    if colmap_db is not None:
+        log.start("read_colmap_db")
+        fr = _frontend_from_database(colmap_db, cfg.frontend.max_matches_per_pair)
+        log.end(frames=fr.feats.valid.shape[0], pairs=len(fr.pair_i))
+    else:
+        fr = frontend or run_frontend(video, cfg, log, gray, color,
+                                      cache_path=os.path.join(output_dir, "frontend.npz"),
+                                      device=dev)
+    W, H = image_size if image_size is not None else (fr.feats.width, fr.feats.height)
+    F = fr.feats.valid.shape[0]
+
+    focal_guess = (W + H) / 2.0
+    intr_guess = Intrinsics(focal_guess, W / 2.0, H / 2.0)
+
+    log.start("estimate_pairwise")
+    if cfg.five_point:
+        pw = estimate_pairwise_five_point(
+            generator(dev, 0), fr.feats.xy, fr.pair_i, fr.pair_j, fr.idx0, fr.idx1,
+            fr.mmask, intr_guess, inlier_threshold_px=cfg.ransac.inlier_threshold_px,
+            min_num_inliers=cfg.ransac.min_num_inliers,
+            num_hypotheses=cfg.ransac.num_hypotheses, device=dev)
+    else:
+        pw = estimate_pairwise(
+            generator(dev, 0), fr.feats.xy, fr.pair_i, fr.pair_j, fr.idx0, fr.idx1,
+            fr.mmask, intr_guess, inlier_threshold_px=cfg.ransac.inlier_threshold_px,
+            min_num_inliers=cfg.ransac.min_num_inliers, inward=cfg.inward,
+            num_hypotheses=cfg.ransac.num_hypotheses, chunk_size=cfg.ransac.pair_chunk,
+            adaptive=cfg.ransac.adaptive, round_size=cfg.ransac.round_size,
+            confidence=cfg.ransac.confidence, device=dev)
+    keep = _graph_from_pairwise(fr, pw, pw.keep, cfg.graph.min_rotation_deg,
+                                best_only=cfg.graph.best_only)
+    log.end(kept_pairs=int(keep.sum()), loop_closures=pw.loop_closure_count)
+
+    log.start("largest_component")
+    frames, remap = largest_connected_component(F, fr.pair_i, fr.pair_j, keep)
+    keep = keep & (remap[fr.pair_i] >= 0) & (remap[fr.pair_j] >= 0)
+    log.end(frames_in_component=len(frames))
+
+    log.start("focal_search")
+    # The search conjugates spherical essential matrices rebuilt from the
+    # estimated relative rotations, not the RANSAC E (general in five-point
+    # mode).
+    E_search = make_spherical_essential(so3_exp(torch.as_tensor(pw.r, dtype=GEOM_DTYPE,
+                                                                device=dev)), cfg.inward)
+    edge_i = torch.as_tensor(fr.pair_i.astype(np.int64), device=dev)
+    edge_j = torch.as_tensor(fr.pair_j.astype(np.int64), device=dev)
+    edge_w = torch.as_tensor(keep.astype(float), dtype=GEOM_DTYPE, device=dev)
+    search_args = (E_search, edge_i, edge_j, edge_w, F)
+    search_kw = dict(min_focal=focal_guess * cfg.focal.min_focal_factor,
+                     max_focal=focal_guess * cfg.focal.max_focal_factor,
+                     inward=cfg.inward, sequential=cfg.graph.sequential)
+    costs = focals = None
+    if cfg.six_point:
+        best_focal, sp_info = estimate_focal_sixpoint(
+            generator(dev, 11), fr.feats.xy, fr.pair_i, fr.pair_j, fr.idx0, fr.idx1,
+            fr.mmask & keep[:, None], pair_weight=np.where(keep, pw.num_inliers, 0),
+            focal_guess=focal_guess, width=float(fr.feats.width),
+            height=float(fr.feats.height), inlier_threshold_px=cfg.ransac.inlier_threshold_px,
+            min_focal_factor=cfg.focal.min_focal_factor,
+            max_focal_factor=cfg.focal.max_focal_factor)
+        if sp_info.get("pairs_used", 0) == 0:
+            print("warning: sixpoint found no usable pairs; keeping the focal guess")
+    elif cfg.focal.strategy == "grid":
+        best_focal, costs, focals = find_best_focal_grid(
+            focal_guess, *search_args, num_steps=cfg.focal.grid_steps, cost=cfg.focal.cost,
+            **search_kw)
+    elif cfg.focal.strategy == "opt":
+        best_focal, ok = find_best_focal_bracketed(
+            generator(dev, 10), focal_guess, *search_args, cost=cfg.focal.cost, **search_kw)
+        if not ok:
+            print("warning: focal bracketing failed; keeping the guess "
+                  "(try increasing the focal bounds)")
+    else:
+        best_focal, costs, focals = find_best_focal_random(
+            generator(dev, 10), focal_guess, *search_args, num_trials=cfg.focal.num_trials,
+            **search_kw)
+    best_focal = float(best_focal)
+    if costs is not None:
+        # one "focal cost" row per hypothesis, sorted by focal
+        focals, costs = focals.cpu().numpy(), costs.cpu().numpy()
+        order = np.argsort(focals)
+        with open(os.path.join(output_dir, "focal_costs.txt"), "w") as fh:
+            for fo, co in zip(focals[order], costs[order]):
+                fh.write(f"{float(fo):.4f} {float(co):.8g}\n")
+    # joint rotations + focal refinement at the best hypothesis
+    g = RotationGraph(edge_i, edge_j, rotations_at_focal(E_search, best_focal / focal_guess,
+                                                         cfg.inward), edge_w)
+    if cfg.graph.sequential:
+        rot0 = initialize_rotations_sequential(F, g)
+    else:
+        rot0 = initialize_rotations_global(F, g, weights=np.where(keep, pw.num_inliers, 0))
+    rots, fmult, pg_cost = optimize_rotations_and_focal(
+        rot0, g, 1.0, focal_guess * cfg.focal.min_focal_factor / best_focal,
+        focal_guess * cfg.focal.max_focal_factor / best_focal)
+    focal = best_focal * float(fmult)
+    log.end(best_search_focal=best_focal, focal=focal, cost=float(pg_cost),
+            **({"sixpoint": sp_info} if cfg.six_point else {}))
+
+    log.start("build_sfm")
+    tracks = build_feature_tracks(F, fr.feats.counts, fr.pair_i, fr.pair_j, fr.idx0,
+                                  fr.idx1, pw.inlier_mask & fr.mmask & keep[:, None])
+    m = SfMMap.build(Intrinsics(focal, W / 2.0, H / 2.0), rots.cpu().numpy(), tracks,
+                     fr.feats.xy, colors=fr.feats.color, spherical=True, inward=cfg.inward,
+                     device=dev)
+    m.focal_fixed = False  # focal is a BA parameter from here on
+    m.retriangulate(generator(dev, 1))
+    log.end(points=int(m.point_valid().sum()))
+    m.write_colmap(os.path.join(output_dir, "sparse", "pre-spherical-ba"), W, H)
+
+    ba_kw = dict(max_iters=cfg.ba.max_iters, solve_dtype=cfg.ba.solve_dtype)
+    log.start("spherical_ba")
+    stats1 = m.optimize(**ba_kw)
+    m.retriangulate(generator(dev, 2))
+    stats2 = m.optimize(**ba_kw, init_lambda=_warm_lambda(stats1))
+    log.end(**{f"ba1_{k}": v for k, v in stats1.items()},
+            **{f"ba2_{k}": v for k, v in stats2.items()})
+    m.write_colmap(os.path.join(output_dir, "sparse", "pre-general-ba"), W, H)
+
+    if cfg.general_ba:
+        log.start("general_ba")
+        m.translation_fixed[:] = False
+        m.translation_fixed[0] = True
+        s3 = m.optimize(**ba_kw, init_lambda=_warm_lambda(stats2))
+        m.normalize()
+        if cfg.ba.filter_threshold_px > 0:
+            m.filter_observations(cfg.ba.filter_threshold_px)
+        m.retriangulate(generator(dev, 3))
+        s4 = m.optimize(**ba_kw, init_lambda=_warm_lambda(s3))
+        m.normalize()
+        log.end(**{f"ba3_{k}": v for k, v in s3.items()},
+                **{f"ba4_{k}": v for k, v in s4.items()})
+
+    log.start("write_outputs")
+    m.write_colmap(os.path.join(output_dir, "sparse", "final"), W, H)
+    _write_outputs(m, output_dir, fr)
+    log.end()
+    focal_out = float(m.intrinsics.focal)
+    with open(os.path.join(output_dir, "calib.txt"), "w") as f:
+        f.write(f"{focal_out} {W / 2.0} {H / 2.0}\n")
+    return m, focal_out
 
 
 def _write_outputs(m: SfMMap, output_dir: str, fr: FrontendResult):

@@ -15,7 +15,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..device import GEOM_DTYPE
+from ..device import GEOM_DTYPE, resolve_device
 from ..geometry.pose import Intrinsics
 from ..geometry.so3 import np_so3_exp, np_so3_log
 from ..optim.ba import BAProblem, build_tracks, bundle_adjust
@@ -49,13 +49,13 @@ class SfMMap:
     def build(cls, intrinsics: Intrinsics, rotations_r: np.ndarray, tracks: Tracks,
               keypoints: np.ndarray, colors: np.ndarray | None = None,
               spherical: bool = True, inward: bool = False, fix_camera: int = 0,
-              paths: list | None = None, device="cpu") -> "SfMMap":
+              paths: list | None = None, device=None) -> "SfMMap":
         """Cameras at t = (0,0,∓1) with the given rotations (translations
         frozen in spherical mode, one rotation frozen), observations centred
-        at the principal point."""
+        at the principal point. The map computes on `device` (None: CUDA)."""
         C = rotations_r.shape[0]
         tz = 1.0 if inward else -1.0
-        m = cls(intrinsics=intrinsics, inward=inward, device=torch.device(device))
+        m = cls(intrinsics=intrinsics, inward=inward, device=resolve_device(device))
         m.cam_r = np.asarray(rotations_r, float).copy()
         m.cam_t = np.tile(np.array([0.0, 0.0, tz]), (C, 1))
         m.paths = list(paths) if paths is not None else [f"{i:06d}.png" for i in range(C)]

@@ -161,9 +161,84 @@ def test_cpu_path_only_on_request():
                        PipelineConfig())
 
 
-def test_unported_options_raise(tmp_path):
+def _tiny_frames():
+    gray = np.random.default_rng(0).uniform(size=(2, 48, 64)).astype(np.float32)
+    return gray, (gray[..., None] * 255).astype(np.uint8).repeat(3, -1)
+
+
+def _call_without_device(entry, tmp_path):
+    from sphericalsfm_tpu_torch.pipeline.driver import StageLogger, run_frontend
+    from sphericalsfm_tpu_torch.pipeline.frontend import (
+        FrameFeatures, detect_features, match_pairs,
+    )
+    from sphericalsfm_tpu_torch.pipeline.sfm import SfMMap
+    from sphericalsfm_tpu_torch.pipeline.tracks import build_feature_tracks
+
+    gray, color = _tiny_frames()
+    if entry == "run_frontend":
+        return run_frontend(None, PipelineConfig(), StageLogger(None, verbose=False), gray,
+                            color)
+    if entry == "detect_features":
+        return detect_features(gray, color)
+    xy = np.zeros((2, 4, 2))
+    if entry == "match_pairs":
+        feats = FrameFeatures(xy=xy, descriptor=np.zeros((2, 4, 128), np.float32),
+                              valid=np.ones((2, 4), bool), color=np.zeros((2, 4, 3), np.uint8),
+                              counts=np.array([4, 4]), width=64, height=48)
+        return match_pairs(feats, np.array([0]), np.array([1]))
+    tracks = build_feature_tracks(2, np.array([4, 4]), np.array([0]), np.array([1]),
+                                  np.arange(4)[None], np.arange(4)[None], np.ones((1, 4), bool))
+    return SfMMap.build(Intrinsics(FOCAL, W / 2, H / 2), np.zeros((2, 3)), tracks, xy)
+
+
+@pytest.mark.parametrize("entry", ["run_frontend", "detect_features", "match_pairs",
+                                   "SfMMap.build"])
+def test_entry_points_default_to_cuda(entry, tmp_path):
+    """Without `device=`, each public entry point means CUDA: with no card
+    it raises resolve_device's error instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _call_without_device(entry, tmp_path)
+
+
+@pytest.mark.parametrize("option", ["devices", "detector", "profile_dir",
+                                    "debug_reprojection", "pose_graph_pcg", "focal_pcg",
+                                    "ba_pcg"])
+def test_unported_options_raise(option, tmp_path):
+    """What the port does not run yet raises NotImplementedError: the
+    multi-device mesh, the OpenCV detector, profiling, reprojection
+    overlays, and the pose-graph and BA PCG solvers."""
+    from sphericalsfm_tpu_torch.interop import rotation_graph_from_numpy
+    from sphericalsfm_tpu_torch.optim.ba import BAProblem, bundle_adjust
+    from sphericalsfm_tpu_torch.optim.pose_graph import (
+        optimize_rotations, optimize_rotations_and_focal,
+    )
+    from sphericalsfm_tpu_torch.pipeline.driver import run_uncalibrated
+
     cfg = PipelineConfig()
-    cfg.frontend.matching = "windows"
-    with pytest.raises(NotImplementedError, match="windows"):
-        run_calibrated(None, Intrinsics(FOCAL, W / 2, H / 2), str(tmp_path), cfg,
-                       device="cpu")
+    g = rotation_graph_from_numpy([0], [1], np.full((1, 3), 0.1), [1.0])
+    rots = torch.zeros((2, 3), dtype=torch.float64)
+    with pytest.raises(NotImplementedError):
+        if option == "pose_graph_pcg":
+            optimize_rotations(rots, g, solver="pcg")
+        elif option == "focal_pcg":
+            optimize_rotations_and_focal(rots, g, 1.0, 0.5, 2.0, solver="pcg")
+        elif option == "ba_pcg":
+            z = torch.zeros(0, dtype=torch.int64)
+            f = torch.zeros((1, 3), dtype=torch.float64)
+            bundle_adjust(BAProblem(torch.tensor(1.0, dtype=torch.float64), f, f, f, z, z,
+                                    torch.zeros((0, 2), dtype=torch.float64),
+                                    torch.zeros(0, dtype=torch.float64), torch.tensor(True),
+                                    torch.tensor([True]), torch.tensor([True]),
+                                    torch.tensor([False])), camera_solver="pcg")
+        else:
+            if option == "devices":
+                cfg.devices = 2
+            elif option == "detector":
+                cfg.frontend.detector = "opencv"
+            elif option == "profile_dir":
+                cfg.profile_dir = str(tmp_path / "trace")
+            else:
+                cfg.debug_reprojection = True
+            run_uncalibrated(None, str(tmp_path / "u"), cfg, device="cpu")
