@@ -29,6 +29,22 @@ non-zero):
                pairwise and six-point focal within 15%, and a run from a
                COLMAP database written by the port from its own frontend
                within 5%.
+  7. flow    — Horn–Schunck flow at 640×480 (4 levels × 60 iterations):
+               the shift-recovery case of tests/test_panorama.py (median u
+               within 0.35 px of 3, median |v| < 0.3), and one keyframe
+               pair's forward and backward flows on the card against the
+               same function on the CPU (99th percentile |Δ| < 1e-3 px).
+  8. panorama — make_stereo_panoramas on (a) BASELINE.md config (5) as
+               scripts/bench_panorama.py defines it (32 rendered frames at
+               640×480, focal 0.8·W, ground-truth poses, 5 panoramas × 2048
+               columns), cold and warm, and (b) the user workflow: the
+               poses.txt and frames of the `main` phase's calibrated run at
+               the CLI defaults (2048 columns, nphi 9). Every output file,
+               each cylindrical panorama more than 80% filled; one pair's
+               columns on the card against the CPU (PSNR ≥ 40 dB, same valid
+               mask); stage seconds and the flows' share of the wall.
+  9. circle_views — 64 views from (b): at least 75% written, each written
+               view more than 50% non-zero.
 Then one JSON line describing the kernel (launches per phase), the card's
 name and power limit, and last the result line {"ok": true, "device":
 {...}}. The script imports nothing of JAX.
@@ -174,6 +190,8 @@ def run_main_path(two_nn, device="cuda", F=48, W=640, H=480):
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = two_nn.launches
+        with open(os.path.join(out, "poses.txt")) as f:
+            poses_txt = f.read()
         missing = [f for f in ("poses.txt", "points.obj", "cameras.obj", "summary.json",
                                "stages.jsonl", "frontend.npz", "sparse/model/cameras.txt",
                                "sparse/model/images.txt", "sparse/model/points3D.txt")
@@ -204,7 +222,9 @@ def run_main_path(two_nn, device="cuda", F=48, W=640, H=480):
         raise AssertionError(f"median relative rotation error {np.median(rel)} >= 2 deg")
     if launches != chunks:
         raise AssertionError(f"matcher launched {launches} times, expected {chunks}")
-    return launches
+    # the calibrated run's output is the stereo-panorama workflow's input
+    return launches, dict(poses_txt=poses_txt, color=color, intrinsics=(focal, W / 2.0, H / 2.0),
+                          launches=launches)
 
 
 EVAL_W, EVAL_H = 640, 480
@@ -421,6 +441,224 @@ def run_modes_phase(two_nn, device="cuda", F=24, W=320, H=240, focal=260.0):
     return launches
 
 
+def shifted_pair(h: int, w: int, seed: int = 1):
+    """tests/test_panorama.py's flow case: a smooth random field and a copy
+    shifted by 3 px in x (u ≈ +3)."""
+    import scipy.ndimage as ndi
+
+    rng = np.random.default_rng(seed)
+    base = ndi.gaussian_filter(rng.random((h + 8, w + 8)).astype(np.float32), 2.0)
+    base = ((base - base.min()) / (base.max() - base.min())).astype(np.float32)
+    return base[4:4 + h, 4:4 + w], base[4:4 + h, 1:1 + w]
+
+
+def write_poses(path, cam_r, cam_t):
+    with open(path, "w") as f:
+        for i in range(len(cam_r)):
+            vals = list(cam_t[i]) + list(cam_r[i])
+            f.write(f"{i} " + " ".join(f"{v:.15f}" for v in vals) + " \n")
+
+
+def render_config5(device="cuda", F=32, W=640, H=480):
+    """BASELINE.md config (5), as scripts/bench_panorama.py renders it."""
+    from sphericalsfm_tpu_torch.eval.render import render_capture
+
+    focal = 0.8 * W
+    cam_r, cam_t, _, color = render_capture(num_frames=F, focal=focal, width=W, height=H,
+                                            wave_freq=25.0 * (W / 320), device=device)
+    return cam_r, cam_t, color, (focal, W / 2.0, H / 2.0)
+
+
+def first_pair(poses_path, color, pano_width, nphi):
+    """The stitcher's first keyframe pair of a capture: its gray frames
+    (float32, as the stitcher makes them), poses and assigned columns."""
+    from sphericalsfm_tpu_torch.io.nerf import read_poses
+    from sphericalsfm_tpu_torch.pipeline import stereo_panorama as sp
+
+    idx, ts, rs = read_poses(poses_path)
+    idx, rs, ts = sp.normalize_trajectory(idx, rs, ts)
+    kf = sp.order_keyframes(sp.PanoKeyframes(idx, rs, ts, sp.compute_thetas(rs, ts)), True)
+    assignments, _, _ = sp.assign_columns(kf, pano_width, nphi)
+    left, right = min(assignments)
+    imgs = color[[kf.index[left], kf.index[right]]]
+    gray = (imgs.astype(np.float64).mean(-1) / 255.0).astype(np.float32)
+    poses = [(kf.r[k].astype(np.float32), kf.t[k].astype(np.float32)) for k in (left, right)]
+    return gray, imgs, poses, assignments[(left, right)]
+
+
+def run_flow_phase(pair_gray, device="cuda", W=640, H=480, levels=4, iters=60):
+    """Shift recovery at full size, and one keyframe pair's two flows on the
+    card against the CPU. Returns the flows {device: (u, v)} (2, H, W)."""
+    from sphericalsfm_tpu_torch.ops.optical_flow import horn_schunck_flow
+
+    I0, I1 = shifted_pair(H, W)
+    t0 = time.perf_counter()
+    u, v = horn_schunck_flow(torch.from_numpy(I0).to(device), torch.from_numpy(I1).to(device),
+                             num_levels=levels, iters_per_level=iters)
+    sync(device)
+    shift_s = time.perf_counter() - t0
+    med_u = float(u[20:-20, 20:-20].median())
+    med_v = float(v[20:-20, 20:-20].median())
+
+    flows, secs = {}, {}
+    for dev in (device, "cpu"):
+        g = torch.from_numpy(pair_gray).to(dev)
+        t0 = time.perf_counter()
+        fu, fv = horn_schunck_flow(torch.stack([g[0], g[1]]), torch.stack([g[1], g[0]]),
+                                   num_levels=levels, iters_per_level=iters)
+        sync(dev)
+        secs[dev] = round(time.perf_counter() - t0, 3)
+        flows[dev] = (fu.cpu(), fv.cpu())
+    d = torch.cat([(flows[device][0] - flows["cpu"][0]).abs().flatten(),
+                   (flows[device][1] - flows["cpu"][1]).abs().flatten()])
+    p99 = float(torch.quantile(d.double(), 0.99))
+    info = dict(size=f"{W}x{H}", levels=levels, iters=iters, shift_median_u=med_u,
+                shift_median_v=med_v, shift_s=round(shift_s, 3), pair_max_abs_diff=float(d.max()),
+                pair_p99_abs_diff=p99, pair_s=secs)
+    phase("flow", **info)
+    if not abs(med_u - 3.0) < 0.35 or not abs(med_v) < 0.3:
+        raise AssertionError(f"flow shift not recovered: median u {med_u}, v {med_v}")
+    if not p99 < 1e-3:
+        raise AssertionError(f"CUDA and CPU flows differ: 99th percentile {p99} px")
+    return flows
+
+
+def pair_columns_check(pair, flows, intrinsics, device="cuda"):
+    """One keyframe pair's synthesized columns, on the card and on the CPU,
+    each from its own flows: PSNR over the valid columns, equal masks."""
+    from sphericalsfm_tpu_torch.pipeline.stereo_panorama import synthesize_pair_columns
+
+    _, imgs, poses, (_, _, th, ph, alpha) = pair
+    out = {}
+    for dev in (device, "cpu"):
+        def f32(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+        u, v = (x.to(dev) for x in flows[dev])
+        cols, valid = synthesize_pair_columns(
+            *(f32(x) for x in intrinsics), f32(th), f32(ph), f32(alpha),
+            tuple(f32(x) for x in poses[0]), tuple(f32(x) for x in poses[1]),
+            f32(imgs[0]), f32(imgs[1]), torch.stack([u[0], v[0]], -1),
+            torch.stack([u[1], v[1]], -1))
+        out[dev] = (torch.clamp(cols, 0, 255).cpu().double(), valid.cpu())
+    (a, va), (b, vb) = out[device], out["cpu"]
+    mse = float(((a[va] - b[va]) ** 2).mean()) if bool(va.any()) else 0.0
+    psnr = 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+    return dict(columns=int(len(va)), valid=int(va.sum()), same_valid=bool(torch.equal(va, vb)),
+                psnr_db=psnr, max_abs_diff=float((a - b).abs().max()))
+
+
+def stitch(poses_path, color, intrinsics, out, pano_width, nphi, device="cuda"):
+    """One make_stereo_panoramas call: wall, stages, fill fractions, files."""
+    from sphericalsfm_tpu_torch.pipeline.stereo_panorama import make_stereo_panoramas
+
+    stats = {}
+    t0 = time.perf_counter()
+    sph = make_stereo_panoramas(poses_path, color, intrinsics, out, pano_width=pano_width,
+                                nphi=nphi, device=device, stats=stats)
+    sync(device)
+    wall = time.perf_counter() - t0
+    files = ([f"cylindrical{p}.png" for p in range(nphi)]
+             + [f"spherical{p}.png" for p in range(nphi)]
+             + [f"overunder{nphi - p - 1}{p}.png" for p in range(nphi // 2)])
+    missing = [f for f in files if not os.path.exists(os.path.join(out, f))]
+    fill = [float(np.mean(read_png(os.path.join(out, f"cylindrical{p}.png")).sum(axis=(0, 2)) > 0))
+            for p in range(nphi) if f"cylindrical{p}.png" not in missing]
+    secs = stats["seconds"]
+    return dict(wall_s=round(wall, 3), stage_s={k: round(v, 3) for k, v in secs.items()},
+                flows_share=secs.get("flows", 0.0) / wall, keyframes=stats["keyframes"],
+                pairs=stats["pairs"], columns=stats["columns"], min_fill=min(fill or [0.0]),
+                fill=[round(f, 4) for f in fill], spherical_shape=list(sph[0].shape),
+                missing=missing)
+
+
+def read_png(path):
+    """Decode an 8-bit RGB PNG of io/png.py (filter type 0 rows, the only
+    kind it writes)."""
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = int.from_bytes(body[:4], "big"), int.from_bytes(body[4:8], "big")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: unexpected PNG row filter")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+PANO_SIZES = dict(F=32, W=640, H=480, pano_width=2048, nphi=5,  # config (5)
+                  cli_width=2048, cli_nphi=9)                   # the CLI defaults
+
+
+def config5_case(tmp, device="cuda", sizes=PANO_SIZES):
+    """Config (5)'s render, its ground-truth poses.txt and its first pair."""
+    cam_r, cam_t, color, intr = render_config5(device, sizes["F"], sizes["W"], sizes["H"])
+    poses = os.path.join(tmp, "config5_poses.txt")
+    write_poses(poses, cam_r, cam_t)
+    return dict(poses=poses, color=color, intrinsics=intr,
+                pair=first_pair(poses, color, sizes["pano_width"], sizes["nphi"]))
+
+
+def run_panorama_phase(case5, flows, workflow, tmp, device="cuda", sizes=PANO_SIZES):
+    """(a) config (5) cold and warm, with the pair check on its first pair;
+    (b) the calibrated run's poses and frames at the CLI defaults. Returns
+    (b)'s poses path."""
+    failures = []
+    runs = {run: stitch(case5["poses"], case5["color"], case5["intrinsics"],
+                        os.path.join(tmp, f"config5_{run}"), sizes["pano_width"], sizes["nphi"],
+                        device)
+            for run in ("cold", "warm")}
+    check = pair_columns_check(case5["pair"], flows, case5["intrinsics"], device)
+    phase("panorama", case="config5", frames=sizes["F"], size=f"{sizes['W']}x{sizes['H']}",
+          pano_width=sizes["pano_width"], nphi=sizes["nphi"], **runs, pair_check=check)
+    for run, r in runs.items():
+        if r["missing"] or not r["min_fill"] > 0.8:
+            failures.append(f"config5 {run}: missing {r['missing']}, fill {r['fill']}")
+    if not check["same_valid"] or not check["psnr_db"] >= 40.0:
+        failures.append(f"pair columns CUDA vs CPU: {check}")
+
+    poses_b = os.path.join(tmp, "calibrated_poses.txt")
+    with open(poses_b, "w") as f:
+        f.write(workflow["poses_txt"])
+    r = stitch(poses_b, workflow["color"], workflow["intrinsics"], os.path.join(tmp, "workflow"),
+               sizes["cli_width"], sizes["cli_nphi"], device)
+    phase("panorama", case="calibrated_workflow", frames=len(workflow["color"]),
+          pano_width=sizes["cli_width"], nphi=sizes["cli_nphi"],
+          poses_from=f"main phase ({workflow['launches']} matcher launches)", **r)
+    if r["missing"] or not r["min_fill"] > 0.8:
+        failures.append(f"workflow: missing {r['missing']}, fill {r['fill']}")
+    if failures:
+        raise AssertionError(f"panorama failed: {failures}")
+    return poses_b
+
+
+def run_circle_views_phase(poses_path, workflow, out, device="cuda", num_views=64):
+    from sphericalsfm_tpu_torch.pipeline.stereo_panorama import make_circle_views
+
+    stats = {}
+    t0 = time.perf_counter()
+    n = make_circle_views(poses_path, workflow["color"], workflow["intrinsics"], out,
+                          num_views=num_views, device=device, stats=stats)
+    sync(device)
+    wall = time.perf_counter() - t0
+    names = sorted(os.listdir(out))
+    nonzero = [float(np.mean(read_png(os.path.join(out, f)).sum(-1) > 0)) for f in names]
+    phase("circle_views", views=num_views, written=n, files=len(names), wall_s=round(wall, 3),
+          stage_s={k: round(v, 3) for k, v in stats["seconds"].items()}, pairs=stats["pairs"],
+          min_nonzero=min(nonzero or [0.0]))
+    if not n >= 0.75 * num_views or len(names) != n or not min(nonzero or [0.0]) > 0.5:
+        raise AssertionError(f"circle views: {n} of {num_views} written, {len(names)} files, "
+                             f"least non-zero share {min(nonzero or [0.0])}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke test needs "
@@ -447,9 +685,15 @@ def main() -> int:
     k.update(time_kernel(mk.two_nearest_neighbors, mk.two_nn_reference, args))
     phase("kernel", **k)
 
-    launches = {"main": run_main_path(mk.two_nearest_neighbors)}
+    main_launches, workflow = run_main_path(mk.two_nearest_neighbors)
+    launches = {"main": main_launches}
     launches["uncalibrated"] = run_uncalibrated_phase(mk.two_nearest_neighbors)
     launches["modes"] = run_modes_phase(mk.two_nearest_neighbors)
+    with tempfile.TemporaryDirectory() as tmp:
+        case5 = config5_case(tmp)
+        flows = run_flow_phase(case5["pair"][0])
+        poses_b = run_panorama_phase(case5, flows, workflow, tmp)
+        run_circle_views_phase(poses_b, workflow, os.path.join(tmp, "views"))
 
     print(json.dumps({"kernels": [{
         "name": "two_nn",

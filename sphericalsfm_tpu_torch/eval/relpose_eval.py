@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..io.colmap import ColmapModel, quat_to_rotmat, read_colmap_text
+from ..io.colmap import ColmapModel, quat_to_rotmat, read_colmap_model
 from .metrics import auc_at
 
 
@@ -50,10 +50,10 @@ def relative_pose_errors(pred: ColmapModel, gt: ColmapModel):
 
 
 def evaluate_models(pred_dir: str, gt_dir: str) -> dict:
-    """The evaluator's report for one sequence of text models:
+    """The evaluator's report for one sequence (each model binary or text):
     Racc/Tacc@{5,15,30} and AUC@30 in %, focal error in %."""
-    rot_err, trans_err, focal_err = relative_pose_errors(read_colmap_text(pred_dir),
-                                                         read_colmap_text(gt_dir))
+    rot_err, trans_err, focal_err = relative_pose_errors(read_colmap_model(pred_dir),
+                                                         read_colmap_model(gt_dir))
     report = {"num_pairs": int(len(rot_err)), "focal_rel_err_pct": 100 * focal_err}
     for tau in (5, 15, 30):
         report[f"Racc@{tau}"] = 100.0 * float((rot_err < tau).mean())

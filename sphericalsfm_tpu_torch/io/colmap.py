@@ -1,15 +1,17 @@
 """COLMAP interop — port of `sphericalsfm_tpu/io/colmap.py`: the text-model
 writer (byte-compatible with the JAX package's files: one shared
 SIMPLE_PINHOLE camera, observations re-centred at the principal point,
-1-based ids), the text-model reader of the relative-pose evaluator, and
-the SQLite feature database (pair_id = id1·2147483647 + id2) through the
-standard library's `sqlite3`. The binary model reader is not ported yet.
+1-based ids), the text and binary model readers of the relative-pose
+evaluator (`read_colmap_model` takes the binary files when `images.bin`
+exists), and the SQLite feature database (pair_id = id1·2147483647 + id2)
+through the standard library's `sqlite3`.
 """
 
 from __future__ import annotations
 
 import os
 import sqlite3
+import struct
 from typing import NamedTuple
 
 import numpy as np
@@ -140,6 +142,65 @@ def read_colmap_text(sparse_dir: str) -> ColmapModel:
                     rgb=np.array([int(x) for x in el[4:7]], np.uint8),
                     track=np.array([int(x) for x in el[8:]], np.int64).reshape(-1, 2))
     return ColmapModel(cameras=cameras, images=images, points=points)
+
+
+_CAMERA_MODELS = {  # COLMAP model id -> (name, number of params)
+    0: ("SIMPLE_PINHOLE", 3), 1: ("PINHOLE", 4), 2: ("SIMPLE_RADIAL", 4), 3: ("RADIAL", 5),
+    4: ("OPENCV", 8), 5: ("OPENCV_FISHEYE", 8), 6: ("FULL_OPENCV", 12), 7: ("FOV", 5),
+    8: ("SIMPLE_RADIAL_FISHEYE", 4), 9: ("RADIAL_FISHEYE", 5), 10: ("THIN_PRISM_FISHEYE", 12),
+}
+
+
+def _unpack(f, fmt: str):
+    return struct.unpack("<" + fmt, f.read(struct.calcsize("<" + fmt)))
+
+
+def read_colmap_binary(sparse_dir: str) -> ColmapModel:
+    """cameras.bin / images.bin / points3D.bin (points optional), COLMAP's
+    little-endian layout; the same records as `read_colmap_text`."""
+    cameras = {}
+    with open(os.path.join(sparse_dir, "cameras.bin"), "rb") as f:
+        for _ in range(_unpack(f, "Q")[0]):
+            cid, model, w, h = _unpack(f, "iiQQ")
+            name, nparams = _CAMERA_MODELS[model]
+            cameras[cid] = dict(model=name, width=w, height=h,
+                                params=np.array(_unpack(f, "d" * nparams)))
+    images = {}
+    with open(os.path.join(sparse_dir, "images.bin"), "rb") as f:
+        for _ in range(_unpack(f, "Q")[0]):
+            iid = _unpack(f, "i")[0]
+            q = np.array(_unpack(f, "dddd"))
+            t = np.array(_unpack(f, "ddd"))
+            cam_id = _unpack(f, "i")[0]
+            name = b""
+            while (c := f.read(1)) != b"\x00":
+                name += c
+            npts = _unpack(f, "Q")[0]
+            data = _unpack(f, "ddq" * npts)
+            xys = np.array(data).reshape(-1, 3)[:, :2] if npts else np.zeros((0, 2))
+            pids = np.array(data[2::3], np.int64) if npts else np.zeros(0, np.int64)
+            images[iid] = dict(q=q, t=t, camera_id=cam_id, name=name.decode("utf-8"),
+                               xys=xys, point3D_ids=pids)
+    points = {}
+    p3d = os.path.join(sparse_dir, "points3D.bin")
+    if os.path.exists(p3d):
+        with open(p3d, "rb") as f:
+            for _ in range(_unpack(f, "Q")[0]):
+                pid = _unpack(f, "Q")[0]
+                xyz = np.array(_unpack(f, "ddd"))
+                rgb = np.array(_unpack(f, "BBB"), np.uint8)
+                _unpack(f, "d")                                   # reprojection error
+                tl = _unpack(f, "Q")[0]
+                track = np.array(_unpack(f, "ii" * tl), np.int64).reshape(-1, 2)
+                points[pid] = dict(xyz=xyz, rgb=rgb, track=track)
+    return ColmapModel(cameras=cameras, images=images, points=points)
+
+
+def read_colmap_model(sparse_dir: str) -> ColmapModel:
+    """The binary model when `images.bin` exists, else the text model."""
+    if os.path.exists(os.path.join(sparse_dir, "images.bin")):
+        return read_colmap_binary(sparse_dir)
+    return read_colmap_text(sparse_dir)
 
 
 MAX_IMAGE_ID = 2147483647

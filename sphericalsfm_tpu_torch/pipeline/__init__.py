@@ -1,4 +1,5 @@
-"""Port of sphericalsfm_tpu/pipeline: frontend, pairwise, tracks, SfM map, drivers."""
+"""Port of sphericalsfm_tpu/pipeline: frontend, pairwise, tracks, SfM map, drivers,
+stereo panorama."""
 
 from .driver import (
     FrontendResult, StageLogger, run_calibrated, run_frontend, run_uncalibrated,
@@ -12,6 +13,7 @@ from .pairwise import (
     pad_match_table,
 )
 from .sfm import SfMMap
+from .stereo_panorama import make_circle_views, make_stereo_panoramas
 from .tracks import (
     Tracks, build_feature_tracks, filter_triplet_cycles,
     largest_connected_component,

@@ -175,6 +175,13 @@ def _call_without_device(entry, tmp_path):
     from sphericalsfm_tpu_torch.pipeline.tracks import build_feature_tracks
 
     gray, color = _tiny_frames()
+    if entry in ("make_stereo_panoramas", "make_circle_views"):
+        from sphericalsfm_tpu_torch.pipeline import stereo_panorama
+
+        poses = tmp_path / "poses.txt"
+        poses.write_text("0 0 0 -1 0 0 0\n1 0 0 -1 0 0.5 0\n2 0 0 -1 0 1.0 0\n")
+        return getattr(stereo_panorama, entry)(str(poses), color, (50.0, 32.0, 24.0),
+                                               str(tmp_path / "out"))
     if entry == "run_frontend":
         return run_frontend(None, PipelineConfig(), StageLogger(None, verbose=False), gray,
                             color)
@@ -192,7 +199,8 @@ def _call_without_device(entry, tmp_path):
 
 
 @pytest.mark.parametrize("entry", ["run_frontend", "detect_features", "match_pairs",
-                                   "SfMMap.build"])
+                                   "SfMMap.build", "make_stereo_panoramas",
+                                   "make_circle_views"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without `device=`, each public entry point means CUDA: with no card
     it raises resolve_device's error instead of running on the CPU."""
