@@ -5,17 +5,29 @@
 Phases (each prints one line; any failure raises and the exit code is
 non-zero):
   1. device  — require CUDA, TF32 off, print the card's name and power limit;
-  2. build   — compile the two-NN matcher (csrc/two_nn.cu) with nvcc;
-  3. kernel  — the kernel against its plain PyTorch version on the card:
-               float32 distances to atol 1e-5 with identical indices (32
-               pairs × 1024, and a ragged 1000 × 1000 case with invalid
-               rows), bfloat16 ratio-test agreement with float32 > 0.99,
-               and both times at the main path's chunk shape;
+  2. build   — compile the two-NN matcher's two sources with nvcc, both at
+               once: csrc/two_nn_wgmma.cu (bf16, the main path's) and
+               csrc/two_nn.cu (float32 FMAs, the exact checker);
+  3. kernel  — both kernels against their plain PyTorch version on the card
+               at 32 pairs × 1024 (the main path's chunk) and 32 pairs ×
+               4000 (the default keypoint count), and on a ragged 8 × 1000
+               case with invalid rows: bf16 distances to atol 1e-4 with
+               identical indices where the plain version's m2 − m1 > 2e-4,
+               float32 to atol 1e-5 with identical indices, +inf on invalid
+               queries, bf16 ratio-test agreement with float32 > 0.99; then,
+               at both shapes, the bf16 kernel's time beside the float32
+               kernel's, the plain version's, a library yardstick's (bf16
+               torch.bmm → 2 − 2·ip + bias → torch.topk) and the bound;
   4. main    — the calibrated driver on a rendered 48-frame 640×480 capture
                (focal 512, 1024 keypoints, exhaustive matching of 1128
                pairs); ATE < 0.05, median relative rotation error < 2°,
                output files present, one matcher launch per 32-pair chunk.
-  5. uncalibrated — three sequences of the evaluation suite
+  5. match_k4000 — detect_features and match_pairs on the main phase's 48
+               frames at the default 4000 keypoints (exhaustive, 1128
+               pairs, 36 launches): matcher seconds, and the agreement of
+               the accepted (pair, query, train) matches between the kernel
+               and the plain version on the card, ≥ 0.99.
+  6. uncalibrated — three sequences of the evaluation suite
                (scripts/eval_suite.py) at their full 640×480 size through
                the uncalibrated driver with windows matching, one line
                each: base_f560_120, wide_f280_100 (focal 2× below the
@@ -24,17 +36,17 @@ non-zero):
                rendered ground truth, relative focal error < 1%,
                ATE < 0.05, every output file, and one matcher launch per
                32-pair chunk of its windows pairs.
-  6. modes   — the uncalibrated driver's other modes on a 24-frame
+  7. modes   — the uncalibrated driver's other modes on a 24-frame
                320×240 render (true focal 260, guess 280): five-point
                pairwise and six-point focal within 15%, and a run from a
                COLMAP database written by the port from its own frontend
                within 5%.
-  7. flow    — Horn–Schunck flow at 640×480 (4 levels × 60 iterations):
+  8. flow    — Horn–Schunck flow at 640×480 (4 levels × 60 iterations):
                the shift-recovery case of tests/test_panorama.py (median u
                within 0.35 px of 3, median |v| < 0.3), and one keyframe
                pair's forward and backward flows on the card against the
                same function on the CPU (99th percentile |Δ| < 1e-3 px).
-  8. panorama — make_stereo_panoramas on (a) BASELINE.md config (5) as
+  9. panorama — make_stereo_panoramas on (a) BASELINE.md config (5) as
                scripts/bench_panorama.py defines it (32 rendered frames at
                640×480, focal 0.8·W, ground-truth poses, 5 panoramas × 2048
                columns), cold and warm, and (b) the user workflow: the
@@ -43,15 +55,17 @@ non-zero):
                each cylindrical panorama more than 80% filled; one pair's
                columns on the card against the CPU (PSNR ≥ 40 dB, same valid
                mask); stage seconds and the flows' share of the wall.
-  9. circle_views — 64 views from (b): at least 75% written, each written
+  10. circle_views — 64 views from (b): at least 75% written, each written
                view more than 50% non-zero.
-Then one JSON line describing the kernel (launches per phase), the card's
+Then one JSON line describing the kernel (launches per phase, times and
+bound at both shapes), the card's
 name and power limit, and last the result line {"ok": true, "device":
 {...}}. The script imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import os
@@ -76,11 +90,19 @@ def sync(device):
         torch.cuda.synchronize()
 
 
+def reset_counts(two_nn):
+    two_nn.launches = 0
+    two_nn.route_launches.update(dict.fromkeys(two_nn.route_launches, 0))
+
+
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device milliseconds per call: the card first sleeps while the host
+    queues every call, so host overhead between calls is not timed."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -100,63 +122,130 @@ def descriptor_table(seed: int, pairs: int, K: int, noise: float = 0.05):
     return np.concatenate([d0, d1]), torch.arange(pairs), torch.arange(pairs) + pairs
 
 
-def check_kernel(two_nn, reference, device="cuda"):
-    dev = torch.device(device)
-    worst = 0.0
-    cases = []
-    for name, pairs, K, drop in (("32x1024", 32, 1024, 0.0), ("ragged1000", 8, 1000, 0.05)):
-        desc, pi, pj = descriptor_table(len(cases), pairs, K)
-        rng = np.random.default_rng(10 + len(cases))
-        valid = rng.uniform(size=desc.shape[:2]) >= drop
-        desc_t = torch.as_tensor(desc, device=dev)
-        valid_t = torch.as_tensor(valid, device=dev)
-        pi, pj = pi.to(dev), pj.to(dev)
-        m1, m2, nn = two_nn(desc_t, valid_t, pi, pj, torch.float32)
-        r1, r2, rn = reference(desc_t, valid_t, pi, pj, torch.float32)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        vq = valid_t[pj]
-        err = max(float((m1[vq] - r1[vq]).abs().max()), float((m2[vq] - r2[vq]).abs().max()))
-        sep = vq & (r2 - r1 > 1e-5)
-        same_idx = bool(torch.equal(nn[sep], rn[sep]))
-        inv_ok = bool(torch.isinf(m1[~vq]).all() and torch.isinf(m2[~vq]).all())
-        if err > 1e-5 or not same_idx or not inv_ok:
-            raise AssertionError(f"kernel != plain version on {name}: max err {err}, "
-                                 f"indices equal {same_idx}, invalid queries inf {inv_ok}")
-        worst = max(worst, err)
-        cases.append((name, err))
+# (name, pairs, K, share of invalid rows): the main path's chunk, the
+# default keypoint count, and a ragged case
+KERNEL_CASES = (("32x1024", 32, 1024, 0.0), ("32x4000", 32, 4000, 0.0),
+                ("ragged1000", 8, 1000, 0.05))
+# (dtype, distance tolerance, index gap): bf16 inputs with f32 sums taken in
+# another order than the plain version's; float32 sums in another order
+TOLERANCES = ((torch.bfloat16, 1e-4, 2e-4), (torch.float32, 1e-5, 1e-5))
+H100_BF16_FLOPS = 989e12   # dense, 700 W (NVIDIA's data sheet)
+H100_HBM_BYTES = 3.35e12
 
-    # bf16 inputs against the f32 result: ratio-test decisions
-    desc, pi, pj = descriptor_table(7, 32, 1024)
-    desc_t = torch.as_tensor(desc, device=dev)
-    valid_t = torch.ones(desc.shape[:2], dtype=torch.bool, device=dev)
-    pi, pj = pi.to(dev), pj.to(dev)
-    f1, f2, fn_ = two_nn(desc_t, valid_t, pi, pj, torch.float32)
-    b1, b2, bn = two_nn(desc_t, valid_t, pi, pj, torch.bfloat16)
-    r2 = 0.75 * 0.75
-    acc_f = (f1 < r2 * f2) & torch.isfinite(f1)
-    acc_b = (b1 < r2 * b2) & torch.isfinite(b1)
-    # agreement of the accepted (pair, query, train) match sets: |∩| / |∪|
-    both = int((acc_f & acc_b & (fn_ == bn)).sum())
-    union = int(acc_f.sum()) + int(acc_b.sum()) - both
-    agree = both / max(union, 1)
-    if agree <= 0.99:
-        raise AssertionError(f"bf16 ratio-test agreement {agree:.4f} <= 0.99")
-    return dict(max_abs_err=worst, cases=cases, bf16_agreement=agree), (desc_t, valid_t, pi, pj)
+
+def compare_two_nn(name, got, ref, qvalid, atol, gap):
+    """Distances to `atol` on valid queries, identical indices where the
+    plain version's m2 − m1 > gap, +inf on invalid queries. Returns the
+    largest distance error."""
+    (m1, m2, nn), (r1, r2, rn) = got, ref
+    err = max(float((m1[qvalid] - r1[qvalid]).abs().max()),
+              float((m2[qvalid] - r2[qvalid]).abs().max()))
+    sep = qvalid & (r2 - r1 > gap)
+    same_idx = bool(torch.equal(nn[sep], rn[sep]))
+    inv_ok = bool(torch.isinf(m1[~qvalid]).all() and torch.isinf(m2[~qvalid]).all())
+    if not err <= atol or not same_idx or not inv_ok:
+        raise AssertionError(f"kernel != plain version on {name}: max err {err}, "
+                             f"indices equal {same_idx}, invalid queries inf {inv_ok}")
+    return err
+
+
+def accepted(out, qvalid, ratio=0.75):
+    m1, m2, nn = out
+    return (m1 < ratio * ratio * m2) & torch.isfinite(m1) & qvalid, nn
+
+
+def match_agreement(a, b, qvalid):
+    """|∩| / |∪| of the ratio-test-accepted (pair, query, train) matches."""
+    (acc_a, nn_a), (acc_b, nn_b) = accepted(a, qvalid), accepted(b, qvalid)
+    both = int((acc_a & acc_b & (nn_a == nn_b)).sum())
+    return both, int(acc_a.sum()) + int(acc_b.sum()) - both
+
+
+def check_kernel(two_nn, reference, device="cuda"):
+    """Both kernels against the plain version on every case, and bf16
+    against float32 on the ratio test. Returns the summary and the cases'
+    tables (bf16 copies for timing)."""
+    dev = torch.device(device)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    cases, tables = [], {}
+    for seed, (name, pairs, K, drop) in enumerate(KERNEL_CASES):
+        desc, pi, pj = descriptor_table(seed, pairs, K)
+        rng = np.random.default_rng(10 + seed)
+        valid = torch.as_tensor(rng.uniform(size=desc.shape[:2]) >= drop, device=dev)
+        desc_t = torch.as_tensor(desc, device=dev)
+        pi, pj = pi.to(dev), pj.to(dev)
+        qvalid = valid[pj]
+        outs, errs = {}, {}
+        for dtype, atol, gap in TOLERANCES:
+            outs[dtype] = two_nn(desc_t, valid, pi, pj, dtype)
+            ref = reference(desc_t, valid, pi, pj, dtype)
+            sync(dev)
+            errs[str(dtype)[6:]] = compare_two_nn(f"{name} {dtype}", outs[dtype], ref, qvalid,
+                                                  atol, gap)
+            worst[dtype] = max(worst[dtype], errs[str(dtype)[6:]])
+            del ref
+        both, union = match_agreement(outs[torch.bfloat16], outs[torch.float32], qvalid)
+        agree = both / max(union, 1)
+        if not agree > 0.99:
+            raise AssertionError(f"{name}: bf16 ratio-test agreement {agree:.4f} <= 0.99")
+        cases.append(dict(case=name, max_abs_err=errs, bf16_f32_agreement=agree))
+        tables[name] = (desc_t.to(torch.bfloat16), valid, pi, pj)
+        del outs
+    return dict(max_abs_err=worst[torch.bfloat16], f32_max_abs_err=worst[torch.float32],
+                cases=cases), tables
+
+
+def library_two_nn(desc, valid, pair_i, pair_j):
+    """Yardstick for the kernel's time, never called by the port: bf16
+    torch.bmm on the gathered copies → 2 − 2·ip + bias → torch.topk."""
+    pi, pj = pair_i.long(), pair_j.long()
+    ip = torch.bmm(desc[pj], desc[pi].transpose(1, 2)).float()
+    bias = torch.where(valid[pi], 0.0, float("inf"))
+    vals, inds = torch.topk(2.0 - 2.0 * ip + bias[:, None, :], 2, dim=-1, largest=False)
+    m1, m2 = vals[..., 0], vals[..., 1]
+    idx = torch.where(torch.isfinite(m1), inds[..., 0], -1).to(torch.int32)
+    qvalid = valid[pj]
+    return (torch.where(qvalid, m1, float("inf")), torch.where(qvalid, m2, float("inf")), idx)
+
+
+def two_nn_bound(desc, valid, pair_i, pair_j):
+    """Least time on an H100 for the bf16 function on these inputs: the
+    larger of its tensor-core operations over the bf16 peak and its bytes
+    (each frame's bf16 descriptors and validity read once, pair lists read,
+    outputs written once) over the memory rate. Returns (ms, bound_by)."""
+    P, K = pair_i.numel(), desc.shape[1]
+    frames = torch.unique(torch.cat([pair_i, pair_j])).numel()
+    ops = 2.0 * P * K * K * desc.shape[2]
+    nbytes = frames * K * (desc.shape[2] * 2 + 1) + 2 * P * 4 + P * K * 12
+    t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def time_kernel(two_nn, reference, args):
-    """Kernel and plain times at the main path's chunk shape, in turns
-    (plain, kernel, kernel, plain); the minimum of each pair is reported."""
-    desc_t, valid_t, pi, pj = args
-
-    # times at the main path's chunk shape (bf16, 32 pairs x 1024 x 1024)
-    plain_ms = cuda_ms(lambda: reference(desc_t, valid_t, pi, pj, torch.bfloat16))
-    ms = cuda_ms(lambda: two_nn(desc_t, valid_t, pi, pj, torch.bfloat16))
-    ms2 = cuda_ms(lambda: two_nn(desc_t, valid_t, pi, pj, torch.bfloat16))
-    plain_ms2 = cuda_ms(lambda: reference(desc_t, valid_t, pi, pj, torch.bfloat16))
-    return dict(ms=min(ms, ms2), plain_ms=min(plain_ms, plain_ms2),
-                ms_runs=[ms, ms2], plain_ms_runs=[plain_ms, plain_ms2])
+    """At one shape: the bf16 kernel, the float32 FMA kernel, the plain bf16
+    version and the library yardstick, in turns (each timed twice, the
+    minimum reported), and the bound."""
+    desc, valid, pi, pj = args
+    desc32 = desc.float()
+    # the main path checks its pair list once per match_pairs call, not per
+    # launch; an older checkout timed by scripts/bench_two_nn.py --root has
+    # no such switch and is timed with its per-launch check
+    kw = {"check_pairs": False} if "check_pairs" in inspect.signature(two_nn).parameters else {}
+    fns = dict(
+        ms=lambda: two_nn(desc, valid, pi, pj, torch.bfloat16, **kw),
+        fma_f32_ms=lambda: two_nn(desc32, valid, pi, pj, torch.float32, **kw),
+        plain_ms=lambda: reference(desc, valid, pi, pj, torch.bfloat16),
+        library_ms=lambda: library_two_nn(desc, valid, pi, pj),
+    )
+    order = ["plain_ms", "ms", "fma_f32_ms", "library_ms"]
+    runs = {k: [] for k in order}
+    for k in order + order[::-1]:
+        runs[k].append(cuda_ms(fns[k], reps=10 if k == "fma_f32_ms" else 20))
+    out = {k: min(v) for k, v in runs.items()}
+    out["bound_ms"], out["bound_by"] = two_nn_bound(desc, valid, pi, pj)
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    out["runs"] = runs
+    return out
 
 
 def run_main_path(two_nn, device="cuda", F=48, W=640, H=480):
@@ -182,14 +271,14 @@ def run_main_path(two_nn, device="cuda", F=48, W=640, H=480):
     pairs = F * (F - 1) // 2
     chunks = math.ceil(pairs / CHUNK)
     with tempfile.TemporaryDirectory() as out:
-        two_nn.launches = 0
+        reset_counts(two_nn)
         t0 = time.perf_counter()
         m = run_calibrated(None, Intrinsics(focal, W / 2.0, H / 2.0), out, cfg,
                            gray=gray, color=color, device=device)
         if device == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = two_nn.launches
+        launches, routes = two_nn.launches, dict(two_nn.route_launches)
         with open(os.path.join(out, "poses.txt")) as f:
             poses_txt = f.read()
         missing = [f for f in ("poses.txt", "points.obj", "cameras.obj", "summary.json",
@@ -211,7 +300,7 @@ def run_main_path(two_nn, device="cuda", F=48, W=640, H=480):
     info = dict(frames=F, size=f"{W}x{H}", pairs=pairs, wall_s=round(wall, 3),
                 render_s=round(render_s, 3), ate=err, median_rel_rot_deg=float(np.median(rel)),
                 points=int(m.point_valid().sum()), summary=summary, launches=launches,
-                expected_launches=chunks,
+                route_launches=routes, expected_launches=chunks,
                 stage_s={s["stage"]: s["seconds"] for s in stages}, ba=ba)
     phase("main", **info)
     if missing:
@@ -220,11 +309,57 @@ def run_main_path(two_nn, device="cuda", F=48, W=640, H=480):
         raise AssertionError(f"ATE {err} >= 0.05")
     if not np.median(rel) < 2.0:
         raise AssertionError(f"median relative rotation error {np.median(rel)} >= 2 deg")
-    if launches != chunks:
-        raise AssertionError(f"matcher launched {launches} times, expected {chunks}")
+    if launches != chunks or routes["wgmma_bf16"] != chunks:
+        raise AssertionError(f"matcher launched {routes}, expected {chunks} bf16 launches")
     # the calibrated run's output is the stereo-panorama workflow's input
-    return launches, dict(poses_txt=poses_txt, color=color, intrinsics=(focal, W / 2.0, H / 2.0),
-                          launches=launches)
+    return launches, dict(poses_txt=poses_txt, gray=gray, color=color,
+                          intrinsics=(focal, W / 2.0, H / 2.0), launches=launches)
+
+
+def run_match_k4000(two_nn, reference, gray, color, device="cuda", K=4000):
+    """The main phase's frames through detect_features and match_pairs at
+    the default keypoint count; then, chunk by chunk, the kernel's accepted
+    matches against the plain version's on the same descriptors. Returns
+    the launches of match_pairs."""
+    from sphericalsfm_tpu_torch.config import FrontendConfig
+    from sphericalsfm_tpu_torch.pipeline.frontend import detect_features, match_pairs
+    from sphericalsfm_tpu_torch.pipeline.pairwise import all_pairs
+
+    cfg = FrontendConfig()
+    cfg.max_keypoints = K
+    t0 = time.perf_counter()
+    feats = detect_features(gray, color, cfg, device=device)
+    sync(device)
+    detect_s = time.perf_counter() - t0
+    pair_i, pair_j = all_pairs(len(gray))
+    pairs = len(pair_i)
+    reset_counts(two_nn)
+    t0 = time.perf_counter()
+    _, _, mmask = match_pairs(feats, pair_i, pair_j, cfg, device=device)
+    match_s = time.perf_counter() - t0
+    launches, routes = two_nn.launches, dict(two_nn.route_launches)
+
+    desc = feats.descriptor_dev.to(torch.bfloat16)
+    valid = feats.valid_dev
+    both = union = 0
+    for s in range(0, pairs, CHUNK):
+        pi = torch.as_tensor(pair_i[s:s + CHUNK], device=device)
+        pj = torch.as_tensor(pair_j[s:s + CHUNK], device=device)
+        b, u = match_agreement(two_nn(desc, valid, pi, pj, torch.bfloat16),
+                               reference(desc, valid, pi, pj, torch.bfloat16), valid[pj.long()])
+        both, union = both + b, union + u
+    agree = both / max(union, 1)
+    chunks = math.ceil(pairs / CHUNK)
+    phase("match_k4000", frames=len(gray), keypoints=K, mean_valid=float(feats.counts.mean()),
+          pairs=pairs, detect_s=round(detect_s, 3), match_s=round(match_s, 4),
+          matches=int(mmask.sum()), launches=launches, route_launches=routes,
+          expected_launches=chunks, accepted_agreement=agree, accepted_union=union)
+    if launches != chunks or routes["wgmma_bf16"] != chunks:
+        raise AssertionError(f"matcher launched {routes}, expected {chunks} bf16 launches")
+    if not agree >= 0.99:
+        raise AssertionError(f"kernel and plain version agree on {agree:.4f} < 0.99 of the "
+                             "accepted matches")
+    return launches
 
 
 EVAL_W, EVAL_H = 640, 480
@@ -677,34 +812,50 @@ def main() -> int:
           tf32=[torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32])
 
     t0 = time.perf_counter()
-    lib = mk.build_library(verbose=True)
-    mk._load()
-    phase("build", seconds=round(time.perf_counter() - t0, 3), library=os.path.relpath(lib, ROOT))
+    libs = mk.build_library(verbose=True)
+    two_nn, reference = mk.two_nearest_neighbors, mk.two_nn_reference
+    phase("build", seconds=round(time.perf_counter() - t0, 3),
+          libraries={k: os.path.relpath(v, ROOT) for k, v in libs.items()})
 
-    k, args = check_kernel(mk.two_nearest_neighbors, mk.two_nn_reference)
-    k.update(time_kernel(mk.two_nearest_neighbors, mk.two_nn_reference, args))
+    k, tables = check_kernel(two_nn, reference)
+    k["timing"] = {name: time_kernel(two_nn, reference, tables[name])
+                   for name in ("32x1024", "32x4000")}
     phase("kernel", **k)
+    del tables
 
-    main_launches, workflow = run_main_path(mk.two_nearest_neighbors)
+    main_launches, workflow = run_main_path(two_nn)
     launches = {"main": main_launches}
-    launches["uncalibrated"] = run_uncalibrated_phase(mk.two_nearest_neighbors)
-    launches["modes"] = run_modes_phase(mk.two_nearest_neighbors)
+    launches["match_k4000"] = run_match_k4000(two_nn, reference, workflow["gray"],
+                                              workflow["color"])
+    launches["uncalibrated"] = run_uncalibrated_phase(two_nn)
+    launches["modes"] = run_modes_phase(two_nn)
     with tempfile.TemporaryDirectory() as tmp:
         case5 = config5_case(tmp)
         flows = run_flow_phase(case5["pair"][0])
         poses_b = run_panorama_phase(case5, flows, workflow, tmp)
         run_circle_views_phase(poses_b, workflow, os.path.join(tmp, "views"))
 
+    t_main = k["timing"]["32x1024"]
     print(json.dumps({"kernels": [{
         "name": "two_nn",
         "route": "cuda",
-        "source": "sphericalsfm_tpu_torch/csrc/two_nn.cu",
+        "source": "sphericalsfm_tpu_torch/csrc/two_nn_wgmma.cu",
         "replaces": "sphericalsfm_tpu/ops/pallas_matching.py:32",
         "launches": launches["main"],
-        "launches_by_phase": launches,
         "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"],
-        "plain_ms": k["plain_ms"],
+        "ms": t_main["ms"],
+        "plain_ms": t_main["plain_ms"],
+        "bound_ms": t_main["bound_ms"],
+        "bound_by": t_main["bound_by"],
+        "library_ms": t_main["library_ms"],
+        "shape": "32x1024 bf16",
+        "launches_by_phase": launches,
+        "by_shape": {name: {key: t[key] for key in ("ms", "fma_f32_ms", "plain_ms", "library_ms",
+                                                     "bound_ms", "bound_by", "share_of_bound")}
+                     for name, t in k["timing"].items()},
+        "f32_route": {"source": "sphericalsfm_tpu_torch/csrc/two_nn.cu",
+                      "max_abs_err": k["f32_max_abs_err"],
+                      "fma_f32_ms": t_main["fma_f32_ms"]},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,36 +1,35 @@
-// Streaming two-nearest-neighbour descriptor matcher for Hopper (sm_90a).
+// Streaming two-nearest-neighbour matcher for Hopper (sm_90a), float32
+// inputs on plain FMAs: the exact checker of the matcher's contract.
 //
 // Replaces sphericalsfm_tpu/ops/pallas_matching.py::_match_kernel, the
-// Pallas TPU kernel of the exhaustive matching sweep. For each image pair p
-// and each query descriptor q of frame pair_j[p], over the train
-// descriptors t of frame pair_i[p]:
+// Pallas TPU kernel of the exhaustive matching sweep, for float32 inputs
+// (compute_dtype="float32", the JAX package's exactness mode); bf16 inputs,
+// the working type, go to csrc/two_nn_wgmma.cu on the tensor cores. For each
+// image pair p and each query descriptor q of frame pair_j[p], over the
+// train descriptors t of frame pair_i[p]:
 //
 //   d(t) = 2 - 2 <desc[pair_j[p], q], desc[pair_i[p], t]>   (valid t only)
 //   m1   = min d,  m2 = second smallest (m2 = m1 on duplicates),
 //   idx  = argmin with the lowest index on ties, -1 if no train row is valid,
 //   m1 = m2 = +inf for invalid queries.
 //
-// Inputs are bf16 (or f32) and every product accumulates in f32, as the
-// Pallas kernel's preferred_element_type=f32 does. The kernel reads the
-// frame-level tables directly (desc (F, K, 128), valid (F, K), pair_i,
-// pair_j (P,)), so the caller never materialises the gathered desc[a] /
-// desc[b] copies.
+// Every product accumulates in f32, as the Pallas kernel's
+// preferred_element_type=f32 does. The kernel reads the frame-level tables
+// directly (desc (F, K, 128), valid (F, K), pair_i, pair_j (P,)), so the
+// caller never materialises the gathered desc[a] / desc[b] copies.
 //
-// What bounds it on the H100: one pair is 2*K*K*128 FLOP against
-// 2*K*128*2 B of bf16 input, ~512 FLOP/B at K = 1024 — above the card's
-// ~295 FLOP/B bf16 ridge, so a fast version is tensor-core bound. This first
-// version is the simple, exact one: plain f32 FMAs from shared memory, no
-// tensor cores. Each block holds one (pair, 64-query tile), transposed in
-// shared memory, and streams the train rows through shared memory in
-// 64-row tiles. Four threads share a query; each scans a contiguous
-// 16-row slice of every tile in ascending order with
+// What bounds it on the H100: one pair is 2*K*K*128 FLOP against 2*K*128*4 B
+// of float32 input, so it is bound by arithmetic: 67 TFLOP/s of float32
+// outside the tensor cores. This version is the simple, exact one: plain f32
+// FMAs from shared memory. Each block holds one (pair, 64-query tile),
+// transposed in shared memory, and streams the train rows through shared
+// memory in 64-row tiles. Four threads share a query; each scans a
+// contiguous 16-row slice of every tile in ascending order with
 //   if (d < m1) {m2 = m1; m1 = d; idx = t} else if (d < m2) m2 = d;
 // keeping its running (m1, m2, idx) in registers, and the four partial
 // top-2s merge at the end with index tie-breaks. That reproduces the TPU
-// semantics exactly. mma.sync / wgmma inner products and TMA tile loads are
-// the later performance work.
+// semantics exactly.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -47,7 +46,6 @@ constexpr int kQStride = kQT + 1;     // padded: conflict-free transposed stores
 constexpr int kTStride = kTT + 4;     // padded, keeps float4 reads aligned
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -171,15 +169,12 @@ int launch(const void* desc, const void* valid, const void* pair_i, const void* 
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int two_nn_launch(const void* desc, int dtype, const void* valid,
-                             const void* pair_i, const void* pair_j, int P, int K,
-                             int D, void* m1, void* m2, void* idx, void* stream) {
+// Plain C entry point, bound with ctypes: desc is the (F, K, 128) float32
+// frame table. Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int two_nn_f32_launch(const void* desc, const void* valid, const void* pair_i,
+                                 const void* pair_j, int P, int K, int D, void* m1, void* m2,
+                                 void* idx, void* stream) {
   if (D != kD || P <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(desc, valid, pair_i, pair_j, P, K, m1, m2, idx, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(desc, valid, pair_i, pair_j, P, K, m1, m2, idx, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float>(desc, valid, pair_i, pair_j, P, K, m1, m2, idx,
+                       static_cast<cudaStream_t>(stream));
 }

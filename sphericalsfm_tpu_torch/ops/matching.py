@@ -36,10 +36,11 @@ def nn_to_index_pairs(nn: torch.Tensor, accept: torch.Tensor, num_train: int,
 
 
 def match_pairs_compact(desc, valid, pair_i, pair_j, max_matches: int,
-                        ratio: float = 0.75, compute_dtype=torch.bfloat16):
+                        ratio: float = 0.75, compute_dtype=torch.bfloat16,
+                        check_pairs: bool = True):
     """Exhaustive-sweep matcher over frame tables → compact (i0, i1, valid),
     each (P, max_matches). The two-NN step is the hand-written kernel on
-    CUDA and its plain version on CPU."""
-    m1, m2, nn = two_nearest_neighbors(desc, valid, pair_i, pair_j, compute_dtype)
+    CUDA and its plain version on CPU (`check_pairs` as there)."""
+    m1, m2, nn = two_nearest_neighbors(desc, valid, pair_i, pair_j, compute_dtype, check_pairs)
     accept = (m1 < (ratio * ratio) * m2) & valid[pair_j.long()] & torch.isfinite(m1)
     return nn_to_index_pairs(nn, accept, desc.shape[1], max_matches)

@@ -7,11 +7,12 @@ windows / loop-closure candidate pairs — port of
 Detection runs on the device in chunks of `cfg.detect_batch` frames;
 frames travel as uint8. The host copy of the descriptors is the
 SIFT-quantized uint8 ×512 form (what the `.npz` cache stores); the matcher
-reads the full-precision device copy (ROADMAP C7). Matching hands the
-frame-level descriptor table and the pair lists to the two-NN kernel in
-chunks of pairs — no gathered per-pair copies; the last chunk is ragged
-(the kernel takes any pair count), so a pair list costs ceil(P / chunk)
-launches.
+reads the full-precision device copy (ROADMAP C7). Matching casts the
+frame-level descriptor table to the matcher's dtype once, checks the pair
+list once on the host, and hands the table and the pair lists to the two-NN
+kernel in chunks of pairs — no gathered per-pair copies; the last chunk is
+ragged (the kernel takes any pair count), so a pair list costs
+ceil(P / chunk) launches.
 
 `device=None` means CUDA and raises without a card (`device.resolve_device`).
 """
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from ..config import FrontendConfig
-from ..device import resolve_device
+from ..device import MATCH_DTYPE, resolve_device
 from ..ops.features import detect_batch
 from ..ops.matching import match_pairs_compact
 
@@ -125,10 +126,18 @@ def match_pairs(feats: FrameFeatures, pair_i: np.ndarray, pair_j: np.ndarray,
     else:
         desc = torch.as_tensor(feats.descriptor, device=device)
         valid = torch.as_tensor(feats.valid, device=device)
-    pi = torch.as_tensor(np.asarray(pair_i, np.int32), device=desc.device)
-    pj = torch.as_tensor(np.asarray(pair_j, np.int32), device=desc.device)
+    pair_i = np.asarray(pair_i, np.int32)
+    pair_j = np.asarray(pair_j, np.int32)
+    F = desc.shape[0]
+    if len(pair_i) and not (0 <= min(pair_i.min(), pair_j.min())
+                            and max(pair_i.max(), pair_j.max()) < F):
+        raise ValueError(f"pair indices must lie in [0, {F})")
+    desc = desc.to(MATCH_DTYPE)
+    pi = torch.as_tensor(pair_i, device=desc.device)
+    pj = torch.as_tensor(pair_j, device=desc.device)
     outs = [match_pairs_compact(desc, valid, pi[s:s + chunk], pj[s:s + chunk],
-                                cfg.max_matches_per_pair, ratio=cfg.match_ratio)
+                                cfg.max_matches_per_pair, ratio=cfg.match_ratio,
+                                compute_dtype=MATCH_DTYPE, check_pairs=False)
             for s in range(0, len(pair_i), chunk)]
     return tuple(torch.cat([o[k] for o in outs]).cpu().numpy() for k in range(3))
 

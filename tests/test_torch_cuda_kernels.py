@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
-versions, on the card. Every test here needs an NVIDIA GPU (marker
+versions, on the card: the bf16 two-NN kernel (tensor cores) and the
+float32 one (FMAs). Every test here needs an NVIDIA GPU (marker
 `cuda`) and skips without one. The module imports no JAX, so on the GPU
 machine it runs without the repository's conftest:
 
@@ -84,3 +85,48 @@ def test_compact_matches_identical_on_card(cuda):
     on_cpu = match_pairs_compact(*args, max_matches=512, compute_dtype=torch.float32)
     for a, b in zip(on_card, on_cpu):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 33])
+@pytest.mark.parametrize("K", [77, 1000, 1024, 4000])
+def test_two_nn_bf16_kernel_matches_plain_version(cuda, K, P):
+    desc, valid, pi, pj = (t.to(cuda) for t in _table(K + P, P, K))
+    before = two_nearest_neighbors.launches, two_nearest_neighbors.route_launches["wgmma_bf16"]
+    m1, m2, nn = two_nearest_neighbors(desc, valid, pi, pj)
+    torch.cuda.synchronize()
+    after = two_nearest_neighbors.launches, two_nearest_neighbors.route_launches["wgmma_bf16"]
+    assert after == (before[0] + 1, before[1] + 1)
+    r1, r2, rn = two_nn_reference(desc, valid, pi, pj, torch.bfloat16)
+    vq = valid[pj]
+    # bf16 inputs alike; tensor-core float32 sums in another order
+    torch.testing.assert_close(m1[vq], r1[vq], atol=1e-4, rtol=0)
+    torch.testing.assert_close(m2[vq], r2[vq], atol=1e-4, rtol=0)
+    sep = vq & (r2 - r1 > 2e-4)
+    assert sep.sum() > 0.5 * vq.sum()
+    assert torch.equal(nn[sep], rn[sep])
+    assert torch.isinf(m1[~vq]).all() and torch.isinf(m2[~vq]).all()
+
+
+@pytest.mark.cuda
+def test_two_nn_bf16_kernel_ties_and_empty_rows(cuda):
+    desc, valid, pi, pj = _table(0, 2, 200, drop=0.0)
+    desc[0, 170] = desc[0, 3]          # duplicate train rows in two tiles: lowest index wins
+    desc[0, 40] = desc[0, 3]           # and a third copy in the first tile
+    desc[2, 0] = desc[0, 3]            # query 0 of pair 0 hits all three exactly
+    valid[1] = False                   # pair 1 has no valid train row
+    m1, m2, nn = two_nearest_neighbors(*(t.to(cuda) for t in (desc, valid, pi, pj)),
+                                       torch.bfloat16)
+    assert int(nn[0, 0]) == 3 and float(m1[0, 0]) == float(m2[0, 0])
+    assert (nn[1] == -1).all() and torch.isinf(m1[1]).all() and torch.isinf(m2[1]).all()
+
+
+@pytest.mark.cuda
+def test_two_nn_routes_count_their_own_launches(cuda):
+    desc, valid, pi, pj = (t.to(cuda) for t in _table(3, 2, 64))
+    counts = dict(two_nearest_neighbors.route_launches)
+    two_nearest_neighbors(desc.to(torch.bfloat16), valid, pi, pj, torch.bfloat16)
+    two_nearest_neighbors(desc, valid, pi, pj, torch.float32)
+    two_nearest_neighbors(desc, valid, pi, pj, torch.float32)
+    assert two_nearest_neighbors.route_launches == {
+        "wgmma_bf16": counts["wgmma_bf16"] + 1, "fma_f32": counts["fma_f32"] + 2}

@@ -4,7 +4,15 @@
   with float32 inputs, at B = 2, K = 384 with invalid rows (the JAX test's
   shapes): distances to atol 1e-5 (float32 summation order), identical
   indices.
+* The plain version in bfloat16 against the Pallas kernel in interpret
+  mode with compute_dtype="bfloat16" — the function the card's bf16 kernel
+  is held to — at K ∈ {77, 200, 384} with ragged validity, on unit-norm
+  Gaussian and on SIFT-like descriptors (non-negative multiples of 1/512,
+  as `_quantize_desc` makes them): distances to atol 1e-4 (bf16 inputs,
+  float32 sums in another order), identical indices where the
+  reference's m2 − m1 > 2e-4.
 * Ratio test and `nn_to_index_pairs` compaction: identical tables.
+* `match_pairs` over a ragged pair list: identical tables for any chunk.
 The CUDA kernel's own tests (against this plain version, on the card) are
 in test_torch_cuda_kernels.py, which imports no JAX so it runs on the GPU
 machine.
@@ -17,8 +25,10 @@ import torch
 
 from sphericalsfm_tpu.ops.matching import nn_to_index_pairs as jnn_to_index_pairs
 from sphericalsfm_tpu.ops.pallas_matching import two_nearest_neighbors_batched
+from sphericalsfm_tpu_torch.config import FrontendConfig
 from sphericalsfm_tpu_torch.ops.matching import match_pairs_compact, nn_to_index_pairs
 from sphericalsfm_tpu_torch.ops.matching_kernel import two_nearest_neighbors
+from sphericalsfm_tpu_torch.pipeline.frontend import FrameFeatures, match_pairs, window_pairs
 
 torch.set_num_threads(1)
 
@@ -114,3 +124,74 @@ def test_nn_to_index_pairs_dedupes():
     i0, i1, valid = nn_to_index_pairs(nn, accept, 8, 6)
     got = {(int(a), int(b)) for a, b, v in zip(i0[0], i1[0], valid[0]) if v}
     assert got == {(2, 5), (3, 0), (7, 2)}
+
+
+def _sift_like(seed, B, K, noise=0.05):
+    """Non-negative descriptors, L2-normalised and quantized to multiples of
+    1/512 in [0, 255/512] as the frontend's `_quantize_desc` makes them."""
+    rng = np.random.default_rng(seed)
+
+    def quantize(x):
+        x = x / np.linalg.norm(x, axis=-1, keepdims=True)
+        return (np.clip(np.round(x * 512.0), 0, 255) / 512.0).astype(np.float32)
+
+    raw = rng.gamma(0.6, size=(B, K, 128)).astype(np.float32)
+    perm = rng.permutation(K)
+    jitter = np.abs(1.0 + noise * rng.normal(size=(B, K, 128))).astype(np.float32)
+    return quantize(raw), quantize(raw[:, perm] * jitter), perm
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "sift"])
+@pytest.mark.parametrize("K", [77, 200, 384])
+def test_plain_bf16_matches_pallas_interpret(K, kind):
+    B = 2
+    d0, d1, _ = (_descriptors if kind == "gaussian" else _sift_like)(K, B, K)
+    rng = np.random.default_rng(100 + K)
+    v0 = rng.uniform(size=(B, K)) >= 0.1
+    v1 = rng.uniform(size=(B, K)) >= 0.1
+    m1j, m2j, nnj = map(np.asarray, two_nearest_neighbors_batched(
+        jnp.asarray(d0), jnp.asarray(d1), jnp.asarray(v0), jnp.asarray(v1),
+        interpret=True, compute_dtype="bfloat16"))
+    m1, m2, nn = (x.numpy() for x in two_nearest_neighbors(
+        *_frame_table(d0, d1, v0, v1), compute_dtype=torch.bfloat16))
+    # bf16 inputs round alike in both; the float32 sums run in another order
+    np.testing.assert_allclose(m1[v1], m1j[v1], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(m2[v1], m2j[v1], atol=1e-4, rtol=0)
+    with np.errstate(invalid="ignore"):        # inf − inf on invalid queries
+        sep = v1 & (m2j - m1j > 2e-4)
+    assert sep.sum() > 0.5 * v1.sum()
+    np.testing.assert_array_equal(nn[sep], nnj[sep])
+    assert np.isinf(m1[~v1]).all() and np.isinf(m2[~v1]).all()
+
+
+def _capture_features(F=9, K=64, seed=5):
+    """Frames that are noisy permutations of one descriptor set, with ragged
+    validity, as host tables (no device copy)."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(K, 128)).astype(np.float32)
+    desc = np.stack([base[rng.permutation(K)] + 0.05 * rng.normal(size=(K, 128))
+                     for _ in range(F)]).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    valid = rng.uniform(size=(F, K)) >= 0.1
+    return FrameFeatures(xy=np.zeros((F, K, 2), np.float32), descriptor=desc, valid=valid,
+                         color=np.zeros((F, K, 3), np.uint8), counts=valid.sum(1), width=64,
+                         height=48)
+
+
+@pytest.mark.parametrize("chunk", [5, 32, 1000])
+def test_match_pairs_identical_for_any_chunk(chunk):
+    feats = _capture_features()
+    pi, pj = window_pairs(9, 5, 3, 3)          # 33 pairs: ragged for 5 and 32
+    cfg = FrontendConfig(max_matches_per_pair=48)
+    got = match_pairs(feats, pi, pj, cfg, chunk=chunk, device="cpu")
+    want = match_pairs_compact(torch.as_tensor(feats.descriptor), torch.as_tensor(feats.valid),
+                               torch.as_tensor(pi), torch.as_tensor(pj), 48)
+    assert got[2].sum() > 0.5 * len(pi) * 48
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b.numpy())
+
+
+def test_match_pairs_rejects_pairs_out_of_range():
+    feats = _capture_features()
+    with pytest.raises(ValueError):
+        match_pairs(feats, np.array([0, 1]), np.array([2, 9]), device="cpu")
