@@ -3,9 +3,9 @@ names and defaults as `sphericalsfm_tpu/config.py`, so a config written by
 the JAX package (`to_json`) loads into the port (`from_json`).
 
 Fields that select paths the port does not run yet (`devices > 1`,
-`frontend.detector = "opencv"`, `profile_dir`, `debug_reprojection`) are
-kept for JSON compatibility; the port's drivers raise NotImplementedError
-when they are set.
+`frontend.detector = "opencv"`, `debug_reprojection`) are kept for JSON
+compatibility; the port's drivers raise NotImplementedError when they are
+set.
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ class PipelineConfig:
     six_point: bool = False            # --sixpoint: shared-focal 6-pt RANSAC
     #   replaces the focal search (reference built SixPointEstimator but
     #   never wired it — six_point_estimator.h:15-37)
-    profile_dir: str | None = None     # jax.profiler trace output
+    profile_dir: str | None = None     # torch.profiler Chrome trace output
     debug_reprojection: bool = False   # write reproj%06d.jpg overlays
     #   (reference show_reprojection_error, spherical_sfm_tools.cpp:957-1005)
     frontend: FrontendConfig = field(default_factory=FrontendConfig)

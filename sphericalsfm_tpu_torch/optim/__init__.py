@@ -1,7 +1,11 @@
 """Port of sphericalsfm_tpu/optim: batched LM, rotation averaging, the
-uncalibrated pose graph and focal search, dense-Schur BA."""
+uncalibrated pose graph and focal search, Schur-complement BA (dense and
+PCG camera solves, checkpointed runs)."""
 
-from .ba import BAProblem, BAResult, ba_cost, build_tracks, bundle_adjust
+from .ba import (
+    BAProblem, BAResult, ba_cost, build_tracks, bundle_adjust, bundle_adjust_checkpointed,
+    prepare_problem, sort_obs_by_camera,
+)
 from .lm import (
     LMResult, cauchy_rho, cauchy_weight, levenberg_marquardt, soft_l1_rho, soft_l1_weight,
     trivial_rho, trivial_weight,

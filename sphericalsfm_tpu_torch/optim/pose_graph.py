@@ -9,6 +9,8 @@ solves by an equilibrated Cholesky. The uncalibrated graph adds one scalar
 parameter, the focal multiplier f: each measurement splits into an in-plane
 axis rotation Rxy(θxy) and a roll Rz(θz), and θxy warps as
 θ' = atan2(2f·sinθxy, (1+f²)cosθxy + (1−f²)), f bound-constrained.
+Above 400 frames ("auto") the LM step is matrix-free instead: block-Jacobi
+preconditioned CG over the edge list, the node reductions by `index_add_`.
 
 The focal sweep runs every hypothesis at once: the relative rotations at T
 focal hypotheses are a (T, E, 3) batch, the rotation init composes a
@@ -29,6 +31,7 @@ import torch
 
 from ..geometry.essential import conjugate_essential_by_focal, decompose_spherical_essential
 from ..geometry.so3 import so3_exp, so3_log
+from .ba import _jacobi_factor
 from .lm import soft_l1_rho, soft_l1_weight
 
 SOFT_L1_SCALE = 0.03
@@ -100,11 +103,15 @@ def _warped_measurement(rx, ry, thetaxy, thetaz, focal_mult):
 
 def _robust_block_lm(residual_edge, rotations_r, extra0, edge_i, edge_j, edge_data,
                      edge_w, fixed_mask, extra_bounds=None, max_iters: int = 64,
-                     ftol: float = 1e-12):
-    """Dense robust LM over rotations and an optional scalar `extra`
-    parameter (the focal multiplier), clipped to `extra_bounds` after each
-    step. `residual_edge(r0, r1, extra, data)` maps edge-batched inputs to
-    (E, 3) residuals. Returns (rotations, extra, cost)."""
+                     ftol: float = 1e-12, solver: str = "dense", pcg_iters: int = 128,
+                     pcg_rtol: float = 1e-8):
+    """Robust LM over rotations and an optional scalar `extra` parameter
+    (the focal multiplier), clipped to `extra_bounds` after each step.
+    `residual_edge(r0, r1, extra, data)` maps edge-batched inputs to (E, 3)
+    residuals. solver="dense" solves the (3N [+1])² normal equations by an
+    equilibrated Cholesky; "pcg" runs block-Jacobi CG over the edge list
+    without forming them (one host sync per CG iteration). Both share the
+    step control. Returns (rotations, extra, cost)."""
     N = rotations_r.shape[0]
     dtype, dev = rotations_r.dtype, rotations_r.device
     has_extra = extra0 is not None
@@ -128,54 +135,109 @@ def _robust_block_lm(residual_edge, rotations_r, extra0, edge_i, edge_j, edge_da
         out = torch.zeros((N,) + x0.shape[1:], dtype=dtype, device=dev)
         return out.index_add_(0, ei, x0).index_add_(0, ej, x1)
 
-    def build_system(rots, extra):
+    def edge_terms(rots, extra):
+        """Weighted edge blocks A0 = J0ᵀwJ0, A1, C01 = J0ᵀwJ1, gradients
+        g0, g1, focal columns f0, f1 and the focal's Hff, gf."""
         parts = [rots[ei], rots[ej]] + ([extra.expand(E)[:, None]] if has_extra else [])
         res = residual_edge(rots[ei], rots[ej], extra, edge_data)
         J = jac(torch.cat(parts, dim=-1), edge_data)              # (E, 3, 6[+1])
         w = soft_l1_weight(torch.sum(res * res, dim=-1), SOFT_L1_SCALE) * live
-        J0 = J[:, :, :3] * free[ei][:, None, None]
+        J0w = J[:, :, :3] * free[ei][:, None, None] * w[:, None, None]
         J1 = J[:, :, 3:6] * free[ej][:, None, None]
-        wj = w[:, None, None]
+        J1w = J1 * w[:, None, None]
+        A0 = torch.einsum("edi,edj->eij", J0w, J[:, :, :3] * free[ei][:, None, None])
+        A1 = torch.einsum("edi,edj->eij", J1w, J1)
+        C01 = torch.einsum("edi,edj->eij", J0w, J1)
+        g0 = torch.einsum("edi,ed->ei", J0w, res)
+        g1 = torch.einsum("edi,ed->ei", J1w, res)
+        if not has_extra:
+            zero = torch.zeros((), dtype=dtype, device=dev)
+            return A0, A1, C01, g0, g1, torch.zeros_like(g0), torch.zeros_like(g1), zero, zero
+        Jf = J[:, :, 6]
+        return (A0, A1, C01, g0, g1, torch.einsum("edi,ed->ei", J0w, Jf),
+                torch.einsum("edi,ed->ei", J1w, Jf), torch.sum(w * torch.sum(Jf * Jf, dim=-1)),
+                torch.sum(w * torch.sum(Jf * res, dim=-1)))
+
+    def dense_step(rots, extra, lam):
+        A0, A1, C01, g0, g1, f0, f1, Hff, gf = edge_terms(rots, extra)
         H = torch.zeros((N * N, 3, 3), dtype=dtype, device=dev)
-        H.index_add_(0, ei * N + ej, torch.einsum("edi,edj->eij", J0 * wj, J1))
+        H.index_add_(0, ei * N + ej, C01)
         H = H.reshape(N, N, 3, 3)
         H = H + H.permute(1, 0, 3, 2)
         ar = torch.arange(N, device=dev)
-        H[ar, ar] += node_sum(torch.einsum("edi,edj->eij", J0 * wj, J0),
-                              torch.einsum("edi,edj->eij", J1 * wj, J1))
-        gvec = node_sum(torch.einsum("edi,ed->ei", J0 * wj, res),
-                        torch.einsum("edi,ed->ei", J1 * wj, res))
-        Hd, gd = H.permute(0, 2, 1, 3).reshape(3 * N, 3 * N), gvec.reshape(3 * N)
-        if not has_extra:
-            return Hd, gd
-        Jf = J[:, :, 6]
-        fcol = node_sum(torch.einsum("edi,ed->ei", J0 * wj, Jf),
-                        torch.einsum("edi,ed->ei", J1 * wj, Jf)).reshape(3 * N)
+        H[ar, ar] += node_sum(A0, A1)
         Hfull = torch.zeros((D, D), dtype=dtype, device=dev)
-        Hfull[:3 * N, :3 * N] = Hd
-        Hfull[:3 * N, 3 * N] = fcol
-        Hfull[3 * N, :3 * N] = fcol
-        Hfull[3 * N, 3 * N] = torch.sum(w * torch.sum(Jf * Jf, dim=-1))
-        gf = torch.sum(w * torch.sum(Jf * res, dim=-1))
-        return Hfull, torch.cat([gd, gf[None]])
+        Hfull[:3 * N, :3 * N] = H.permute(0, 2, 1, 3).reshape(3 * N, 3 * N)
+        gvec = node_sum(g0, g1).reshape(3 * N)
+        if has_extra:
+            fcol = node_sum(f0, f1).reshape(3 * N)
+            Hfull[:3 * N, 3 * N] = Hfull[3 * N, :3 * N] = fcol
+            Hfull[3 * N, 3 * N] = Hff
+            gvec = torch.cat([gvec, gf[None]])
+        diag = torch.clamp(torch.diagonal(Hfull), min=1e-12)
+        A = Hfull + torch.diag(lam * diag)
+        dscale = torch.sqrt(torch.clamp(torch.diagonal(A), min=1e-15))
+        A_eq = A / dscale[:, None] / dscale[None, :]
+        L, _ = torch.linalg.cholesky_ex(A_eq + 1e-12 * torch.eye(D, dtype=dtype, device=dev))
+        dx = torch.cholesky_solve((-(gvec / dscale))[:, None], L)[:, 0] / dscale
+        return dx[:3 * N].reshape(N, 3), dx[3 * N] if has_extra else None
 
-    eye = torch.eye(D, dtype=dtype, device=dev)
+    def pcg_step(rots, extra, lam):
+        A0, A1, C01, g0, g1, f0, f1, Hff, gf = edge_terms(rots, extra)
+        # frozen (gauge) nodes are exact zeros after the node reduction
+        Hnn = node_sum(A0, A1) * free[:, None, None]
+        gnode = node_sum(g0, g1) * free[:, None]
+        dvec = torch.clamp(torch.diagonal(Hnn, dim1=-2, dim2=-1), min=1e-12)
+        Hff_d = Hff * (1.0 + lam) + 1e-12
+
+        def matvec(x, xf):
+            xi, xj = x[ei], x[ej]
+            y0 = torch.einsum("eij,ej->ei", A0, xi) + torch.einsum("eij,ej->ei", C01, xj) + f0 * xf
+            y1 = torch.einsum("eij,ei->ej", C01, xi) + torch.einsum("eij,ej->ei", A1, xj) + f1 * xf
+            out = node_sum(y0, y1) * free[:, None] + lam * dvec * x
+            return out, torch.sum(f0 * xi) + torch.sum(f1 * xj) + Hff_d * xf
+
+        # damped node blocks, eps-clamped; a failed factor takes the
+        # blocks' diagonal
+        Pn = Hnn + torch.diag_embed(lam * dvec)
+        Lp = _jacobi_factor(Pn, torch.diag_embed(torch.diagonal(Pn, dim1=-2, dim2=-1)), 1e-8)
+        Pf = torch.clamp(Hff_d, min=1e-30)
+
+        def precond(r, rf):
+            return torch.cholesky_solve(r[:, :, None], Lp)[:, :, 0] * free[:, None], rf / Pf
+
+        r, rf = -gnode, -gf
+        thresh = pcg_rtol * pcg_rtol * torch.clamp(torch.sum(r * r) + rf * rf, min=1e-30)
+        x, xf = torch.zeros_like(r), torch.zeros_like(rf)
+        z, zf = precond(r, rf)
+        p, pf = z, zf
+        rz = torch.sum(r * z) + rf * zf
+        it = 0
+        while it < pcg_iters and bool((torch.sum(r * r) + rf * rf > thresh) & torch.isfinite(rz)):
+            Ap, Apf = matvec(p, pf)
+            denom = torch.sum(p * Ap) + pf * Apf
+            alpha = rz / torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
+            x, xf = x + alpha * p, xf + alpha * pf
+            r, rf = r - alpha * Ap, rf - alpha * Apf
+            z, zf = precond(r, rf)
+            rz_new = torch.sum(r * z) + rf * zf
+            beta = rz_new / torch.where(torch.abs(rz) > 1e-30, rz, 1e-30)
+            p, pf = z + beta * p, zf + beta * pf
+            rz = rz_new
+            it += 1
+        return x, xf if has_extra else None
+
+    step = pcg_step if solver == "pcg" else dense_step
     rots = rotations_r
     extra = torch.as_tensor(extra0, dtype=dtype, device=dev) if has_extra else None
     lam = torch.tensor(1e-4, dtype=dtype, device=dev)
     cost = total_cost(rots, extra)
     for _ in range(max_iters):
-        H, gvec = build_system(rots, extra)
-        diag = torch.clamp(torch.diagonal(H), min=1e-12)
-        A = H + torch.diag(lam * diag)
-        dscale = torch.sqrt(torch.clamp(torch.diagonal(A), min=1e-15))
-        A_eq = A / dscale[:, None] / dscale[None, :]
-        L, _ = torch.linalg.cholesky_ex(A_eq + 1e-12 * eye)
-        dx = torch.cholesky_solve((-(gvec / dscale))[:, None], L)[:, 0] / dscale
-        rots_n = rots + dx[:3 * N].reshape(N, 3) * free[:, None]
+        dxn, dxf = step(rots, extra, lam)
+        rots_n = rots + dxn * free[:, None]
         extra_n = extra
         if has_extra:
-            extra_n = extra + dx[3 * N]
+            extra_n = extra + dxf
             if extra_bounds is not None:
                 extra_n = torch.clamp(extra_n, float(extra_bounds[0]), float(extra_bounds[1]))
         cost_n = total_cost(rots_n, extra_n)
@@ -197,18 +259,20 @@ def _gauge_mask(N: int, device) -> torch.Tensor:
     return fixed
 
 
-def _check_solver(solver: str):
-    if solver == "pcg":
-        raise NotImplementedError("the PCG pose-graph solver is not ported yet")
+def _resolve_solver(solver: str, N: int) -> str:
+    """"auto" is the PCG above 400 nodes (the real count), else dense."""
+    if solver not in ("auto", "dense", "pcg"):
+        raise ValueError(f"unknown pose-graph solver {solver!r}")
+    return ("pcg" if N > 400 else "dense") if solver == "auto" else solver
 
 
 def optimize_rotations(rotations_r: torch.Tensor, g: RotationGraph, max_iters: int = 64,
                        solver: str = "auto", ftol: float = 1e-12):
-    """Robust rotation averaging; camera 0 is the gauge anchor.
-
-    Returns (rotations (N, 3), final cost). Only the dense solve is ported;
-    `solver="pcg"` raises NotImplementedError."""
-    _check_solver(solver)
+    """Robust rotation averaging; camera 0 is the gauge anchor. `solver`:
+    "dense", "pcg" or "auto". Returns (rotations (N, 3), final cost);
+    `optimize_rotations.solves` counts the calls by resolved solver."""
+    solver = _resolve_solver(solver, rotations_r.shape[0])
+    optimize_rotations.solves[solver] += 1
     scale = _edge_scale(g)
 
     def residual(r0, r1, _extra, r_meas):
@@ -216,7 +280,8 @@ def optimize_rotations(rotations_r: torch.Tensor, g: RotationGraph, max_iters: i
 
     rots, _, cost = _robust_block_lm(
         residual, rotations_r, None, g.edge_i, g.edge_j, g.r_meas, g.edge_w,
-        _gauge_mask(rotations_r.shape[0], rotations_r.device), max_iters=max_iters, ftol=ftol)
+        _gauge_mask(rotations_r.shape[0], rotations_r.device), max_iters=max_iters, ftol=ftol,
+        solver=solver)
     return rots, cost
 
 
@@ -225,7 +290,7 @@ def optimize_rotations_and_focal(rotations_r: torch.Tensor, g: RotationGraph, fo
     """Joint rotations + focal-multiplier optimization, the multiplier held
     in [mult_lo, mult_hi]. Returns (rotations (N, 3), focal_mult, cost);
     the caller multiplies its focal by focal_mult."""
-    _check_solver(solver)
+    solver = _resolve_solver(solver, rotations_r.shape[0])
     scale = _edge_scale(g)
     rx, ry, txy, tz = decompose_rotation_xy_z(so3_exp(g.r_meas))
     edge_data = torch.stack([rx, ry, txy, tz], dim=-1)
@@ -238,7 +303,10 @@ def optimize_rotations_and_focal(rotations_r: torch.Tensor, g: RotationGraph, fo
     return _robust_block_lm(
         residual, rotations_r, focal_mult0, g.edge_i, g.edge_j, edge_data, g.edge_w,
         _gauge_mask(rotations_r.shape[0], rotations_r.device),
-        extra_bounds=(mult_lo, mult_hi), max_iters=max_iters)
+        extra_bounds=(mult_lo, mult_hi), max_iters=max_iters, solver=solver)
+
+
+optimize_rotations.solves = {"dense": 0, "pcg": 0}
 
 
 def _sequential_tree(num_frames: int, edge_i, edge_j, edge_w):

@@ -4,7 +4,9 @@
 Cameras, points and observations live in numpy tables on the host; the
 compute stages (RANSAC retriangulation of every track, robust BA) upload
 them to the map's device as float64 tensors. Writers produce the same
-bytes as the JAX package's.
+bytes as the JAX package's. BA picks its camera solver as the JAX map
+does, on the camera count rounded up its 1.25× ladder (the JAX map pads
+its tensors to that count; the port does not pad).
 """
 
 from __future__ import annotations
@@ -18,9 +20,20 @@ import torch
 from ..device import GEOM_DTYPE, resolve_device
 from ..geometry.pose import Intrinsics
 from ..geometry.so3 import np_so3_exp, np_so3_log
-from ..optim.ba import BAProblem, build_tracks, bundle_adjust
+from ..optim.ba import (
+    MAX_DENSE_CAMERAS, BAProblem, build_tracks, bundle_adjust, prepare_problem,
+)
 from ..ransac.triangulation import triangulation_ransac
 from .tracks import Tracks
+
+
+def camera_bucket(C: int) -> int:
+    """The JAX map's padded camera count: 8-aligned 1.25× steps (408 stays
+    408, 409–504 → 504, 505–624 → 624)."""
+    Cp = 8
+    while Cp < C:
+        Cp = max(Cp + 8, int(Cp * 1.25) // 8 * 8)
+    return Cp
 
 
 @dataclass
@@ -123,10 +136,13 @@ class SfMMap:
         self.points = np.where(ok[:, None], X, 0.0)
 
     def optimize(self, max_iters: int = 100, solve_dtype: str = "float64",
-                 loss_scale: float = 1.0, ftol: float = 1e-6, init_lambda: float = 1e-4,
+                 loss_scale: float = 1.0, ftol: float = 1e-6, pcg_rtol: float = 1e-4,
+                 pcg_iters: int = 100, init_lambda: float = 1e-4,
                  init_dec: float = 2.0) -> dict:
         """Robust BA: points with <3 observations or at the origin are
-        excluded; Cauchy loss; Ceres' default function tolerance 1e-6."""
+        excluded; Cauchy loss; Ceres' default function tolerance 1e-6. The
+        PCG camera solve (above 512 bucketed cameras or the pair cap) runs
+        at `pcg_rtol` / `pcg_iters`."""
         if self.num_cameras == 0 or self.num_points == 0:
             return {}
         t0 = time.perf_counter()
@@ -148,9 +164,12 @@ class SfMMap:
             rot_fixed=self._tensor(self.rotation_fixed, b),
             trans_fixed=self._tensor(self.translation_fixed, b),
             point_fixed=self._tensor(self.point_fixed | ~usable_pt, b))
+        prob, solver = prepare_problem(
+            prob, "pcg" if camera_bucket(self.num_cameras) > MAX_DENSE_CAMERAS else "auto")
         t1 = time.perf_counter()
         res = bundle_adjust(prob, max_iters=max_iters, loss_scale=loss_scale, ftol=ftol,
-                            solve_dtype_name=solve_dtype, init_lambda=init_lambda,
+                            solve_dtype_name=solve_dtype, camera_solver=solver,
+                            pcg_rtol=pcg_rtol, pcg_iters=pcg_iters, init_lambda=init_lambda,
                             init_dec=init_dec)
         self.cam_t = res.cam_t.cpu().numpy()
         self.cam_r = res.cam_r.cpu().numpy()
@@ -166,6 +185,8 @@ class SfMMap:
             "prep_s": round(t1 - t0, 2),
             "solve_s": round(t2 - t1, 2),
             "lam": float(res.lam),
+            "solver": solver,
+            "pcg_iterations": res.pcg_iterations,
         }
 
     def reprojection_errors(self) -> np.ndarray:

@@ -105,9 +105,3 @@ def test_build_tracks_matches():
         np.testing.assert_array_equal(b[0], a[0])
         np.testing.assert_array_equal(b[1], a[1])
 
-
-def test_more_than_512_cameras_raises():
-    pt = ba_problem_from_numpy(_problem(_scene(seed=5, C=4)))
-    big = pt._replace(cam_t=pt.cam_t.new_zeros((513, 3)), cam_r=pt.cam_r.new_zeros((513, 3)))
-    with pytest.raises(NotImplementedError, match="PCG"):
-        bundle_adjust(big)

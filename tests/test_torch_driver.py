@@ -210,43 +210,40 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         _call_without_device(entry, tmp_path)
 
 
-@pytest.mark.parametrize("option", ["devices", "detector", "profile_dir",
-                                    "debug_reprojection", "pose_graph_pcg", "focal_pcg",
-                                    "ba_pcg"])
+@pytest.mark.parametrize("option", ["devices", "detector", "debug_reprojection"])
 def test_unported_options_raise(option, tmp_path):
     """What the port does not run yet raises NotImplementedError: the
-    multi-device mesh, the OpenCV detector, profiling, reprojection
-    overlays, and the pose-graph and BA PCG solvers."""
-    from sphericalsfm_tpu_torch.interop import rotation_graph_from_numpy
-    from sphericalsfm_tpu_torch.optim.ba import BAProblem, bundle_adjust
-    from sphericalsfm_tpu_torch.optim.pose_graph import (
-        optimize_rotations, optimize_rotations_and_focal,
-    )
+    multi-device mesh, the OpenCV detector and reprojection overlays."""
     from sphericalsfm_tpu_torch.pipeline.driver import run_uncalibrated
 
     cfg = PipelineConfig()
-    g = rotation_graph_from_numpy([0], [1], np.full((1, 3), 0.1), [1.0])
-    rots = torch.zeros((2, 3), dtype=torch.float64)
+    if option == "devices":
+        cfg.devices = 2
+    elif option == "detector":
+        cfg.frontend.detector = "opencv"
+    else:
+        cfg.debug_reprojection = True
     with pytest.raises(NotImplementedError):
-        if option == "pose_graph_pcg":
-            optimize_rotations(rots, g, solver="pcg")
-        elif option == "focal_pcg":
-            optimize_rotations_and_focal(rots, g, 1.0, 0.5, 2.0, solver="pcg")
-        elif option == "ba_pcg":
-            z = torch.zeros(0, dtype=torch.int64)
-            f = torch.zeros((1, 3), dtype=torch.float64)
-            bundle_adjust(BAProblem(torch.tensor(1.0, dtype=torch.float64), f, f, f, z, z,
-                                    torch.zeros((0, 2), dtype=torch.float64),
-                                    torch.zeros(0, dtype=torch.float64), torch.tensor(True),
-                                    torch.tensor([True]), torch.tensor([True]),
-                                    torch.tensor([False])), camera_solver="pcg")
-        else:
-            if option == "devices":
-                cfg.devices = 2
-            elif option == "detector":
-                cfg.frontend.detector = "opencv"
-            elif option == "profile_dir":
-                cfg.profile_dir = str(tmp_path / "trace")
-            else:
-                cfg.debug_reprojection = True
-            run_uncalibrated(None, str(tmp_path / "u"), cfg, device="cpu")
+        run_uncalibrated(None, str(tmp_path / "u"), cfg, device="cpu")
+
+
+def test_profile_dir_writes_trace(tmp_path):
+    """`cfg.profile_dir` traces the driver with torch.profiler: a Chrome
+    trace whose CPU events cover the frontend through the writers."""
+    focal, w, h = 80.0, 160, 120
+    _, _, gray, color = render_capture(num_frames=6, arc=0.3, focal=focal, width=w, height=h,
+                                       wave_freq=12.5)
+    cfg = PipelineConfig()
+    cfg.frontend.max_keypoints = 256
+    cfg.frontend.max_matches_per_pair = 128
+    cfg.ransac.num_hypotheses = 128
+    cfg.ransac.min_num_inliers = 12
+    cfg.ba.max_iters = 10
+    cfg.profile_dir = str(tmp_path / "trace")
+    run_calibrated(None, Intrinsics(focal, w / 2.0, h / 2.0), str(tmp_path / "out"), cfg,
+                   gray=gray, color=color, device="cpu")
+    with open(tmp_path / "trace" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert len(events) > 100
+    assert any(n.startswith("aten::") for n in names)

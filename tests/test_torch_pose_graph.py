@@ -239,3 +239,69 @@ def test_focal_multiplier_respects_bounds():
                                                 jnp.asarray(1.03))
     assert float(ft) == pytest.approx(0.97, abs=1e-12)
     np.testing.assert_allclose(float(ft), float(fj), rtol=1e-6)
+
+
+# --- the matrix-free PCG pose graph ---------------------------------------
+
+def test_pose_graph_pcg_matches_jax():
+    """Calibrated rotation averaging with the PCG solver, both packages, on
+    the noisy graph with outliers and dead edges: cost rtol 1e-8,
+    rotations atol 1e-6."""
+    r_gt, ei, ej, r_meas, w = _graph(seed=4)
+    N = r_gt.shape[0]
+    gj = jpg.RotationGraph(jnp.asarray(ei), jnp.asarray(ej), jnp.asarray(r_meas), jnp.asarray(w))
+    init = np.array(jpg.initialize_rotations_global(N, gj))
+    rot_j, cost_j = jpg.optimize_rotations(jnp.asarray(init), gj, solver="pcg")
+    before = dict(tpg.optimize_rotations.solves)
+    rot_t, cost_t = tpg.optimize_rotations(torch.as_tensor(init),
+                                           rotation_graph_from_numpy(ei, ej, r_meas, w),
+                                           solver="pcg")
+    assert tpg.optimize_rotations.solves["pcg"] == before["pcg"] + 1
+    np.testing.assert_allclose(float(cost_t), float(cost_j), rtol=1e-8)
+    np.testing.assert_allclose(rot_t.numpy(), np.asarray(rot_j), atol=1e-6)
+
+
+def test_focal_pcg_matches_dense():
+    """The joint rotations + focal graph with the PCG solver lands within
+    1e-3 of the dense solve's focal, and near the truth."""
+    r_gt, ei, ej, E, w, f_true, f_guess, n = _uncalib_setup()
+    f0 = f_true * 1.1
+    gt = rotation_graph_from_numpy(ei, ej, tpg.rotations_at_focal(torch.as_tensor(E),
+                                                                  f0 / f_guess).numpy(), w)
+    rots0 = tpg.initialize_rotations_sequential(n, gt)
+    focal = {s: f0 * float(tpg.optimize_rotations_and_focal(rots0, gt, 1.0, 0.25, 4.0,
+                                                            solver=s)[1])
+             for s in ("dense", "pcg")}
+    assert abs(focal["pcg"] - focal["dense"]) / f_true < 1e-3, focal
+    assert abs(focal["pcg"] - f_true) / f_true < 0.02, focal
+
+
+def test_pose_graph_auto_takes_pcg_above_400_nodes():
+    """On a 500-frame ring with loop closures "auto" resolves to the PCG
+    (on the real node count) and lands at the dense optimum: cost rtol
+    1e-4, rotations within 0.1°."""
+    from sphericalsfm_tpu_torch.eval.metrics import rotation_error_deg
+
+    n = 500
+    rng = np.random.default_rng(2)
+    r_gt = np.stack([np.zeros(n), np.arange(n) * 2 * np.pi / n, np.zeros(n)], -1)
+    R = np_so3_exp(r_gt)
+    pairs = [(i, i + 1) for i in range(n - 1)] + [
+        (min(a, b), max(a, b)) for a, b in ((i, (i + n // 2) % n) for i in range(0, n, 50))]
+    ei = np.array([p[0] for p in pairs])
+    ej = np.array([p[1] for p in pairs])
+    R_rel = np.einsum("eij,ekj->eik", R[ej], R[ei])
+    r_meas = np_so3_log(np_so3_exp(rng.normal(size=(len(pairs), 3)) * 0.005) @ R_rel)
+    g = rotation_graph_from_numpy(ei, ej, r_meas, np.ones(len(pairs)))
+    init = tpg.initialize_rotations_sequential(n, g)
+    before = dict(tpg.optimize_rotations.solves)
+    rots, cost = tpg.optimize_rotations(init, g, max_iters=30)
+    assert tpg.optimize_rotations.solves["pcg"] == before["pcg"] + 1
+    rots_d, cost_d = tpg.optimize_rotations(init, g, max_iters=30, solver="dense")
+    assert tpg.optimize_rotations.solves["dense"] == before["dense"] + 1
+    np.testing.assert_allclose(float(cost), float(cost_d), rtol=1e-4)
+    d = rotation_error_deg(np_so3_exp(rots.numpy()), np_so3_exp(rots_d.numpy())).numpy()
+    assert d.max() < 0.1, d.max()
+    errs = rotation_error_deg(np_so3_exp(rots.numpy()), R).numpy()
+    init_errs = rotation_error_deg(np_so3_exp(init.numpy()), R).numpy()
+    assert errs.max() < init_errs.max()

@@ -98,3 +98,48 @@ def test_best_model_masks_invalid_candidates():
     assert int(b) == 2 and float(score) == 2.0
     assert inl.tolist() == [[False, True]]
     assert float(msac_score(errs[0, 1], 2.0, mask[0])) == 3.0
+
+
+def test_small_angle_pairwise_matches_jax():
+    """Frame gaps of 1.33° and 2° (frames 0–11 of the 540-frame, 640×480,
+    focal-560 sweep of chip_smoke.py's long_capture, rendered as 12 frames
+    over 12/540 of the circle): both packages' pairwise spherical RANSAC on
+    the same frontend measure rotation angles short of the truth by the same
+    amount, to 0.01 in the median ratio. The short small-angle edges are a
+    reference behaviour, and why the long capture's measured focal graph has
+    its optimum near 1.036 (ROADMAP C25)."""
+    from sphericalsfm_tpu.geometry import Intrinsics as JaxIntrinsics
+    from sphericalsfm_tpu.pipeline.pairwise import estimate_pairwise as jax_estimate_pairwise
+    from sphericalsfm_tpu_torch.config import FrontendConfig
+    from sphericalsfm_tpu_torch.eval.render import render_capture
+    from sphericalsfm_tpu_torch.geometry.pose import Intrinsics
+    from sphericalsfm_tpu_torch.geometry.so3 import np_so3_log
+    from sphericalsfm_tpu_torch.pipeline.frontend import detect_features, match_pairs
+    from sphericalsfm_tpu_torch.pipeline.pairwise import estimate_pairwise
+
+    n, W, H, focal = 12, 640, 480, 560.0
+    cam_r, _, gray, color = render_capture(num_frames=n, arc=n / 540, focal=focal, width=W,
+                                           height=H, seed=7, n_waves=600,
+                                           wave_freq=25.0 * W / 320.0)
+    cfg = FrontendConfig()
+    cfg.max_keypoints, cfg.max_matches_per_pair = 1024, 512
+    feats = detect_features(gray, color, cfg, device="cpu")
+    pi = np.array([i for g in (2, 3) for i in range(n - g)])
+    pj = np.array([i + g for g in (2, 3) for i in range(n - g)])
+    idx0, idx1, mm = match_pairs(feats, pi, pj, cfg, device="cpu")
+    kw = dict(inlier_threshold_px=2.0, min_num_inliers=30, num_hypotheses=256)
+    pw_t = estimate_pairwise(torch.Generator().manual_seed(0), feats.xy, pi, pj, idx0, idx1, mm,
+                             Intrinsics(focal, W / 2, H / 2), device="cpu", **kw)
+    pw_j = jax_estimate_pairwise(jax.random.PRNGKey(0), feats.xy, pi, pj, idx0, idx1, mm,
+                                 JaxIntrinsics(*(jnp.asarray(x) for x in (focal, W / 2, H / 2))),
+                                 **kw)
+    R = np_so3_exp(cam_r)
+    true = np.linalg.norm(np_so3_log(np.einsum("eij,ekj->eik", R[pj], R[pi])), axis=-1)
+    for g in (2, 3):
+        ratios = []
+        for pw in (pw_t, pw_j):
+            keep = np.asarray(pw.keep) & (pj - pi == g)
+            assert keep.sum() >= n - g - 1
+            ratios.append(np.median(np.linalg.norm(np.asarray(pw.r), axis=-1)[keep] / true[keep]))
+        assert abs(ratios[0] - ratios[1]) < 0.01, (g, ratios)
+        assert max(ratios) < 0.99, (g, ratios)
