@@ -7,10 +7,11 @@
   python -m sphericalsfm_tpu_torch nerf-export  — sphericalsfm2json
   python -m sphericalsfm_tpu_torch panorama     — make_stereo_panorama
   python -m sphericalsfm_tpu_torch circle-views — make_circle_views
+  python -m sphericalsfm_tpu_torch solver-bench — synthetic solver sweep
 
 Same flags as the JAX package's verbs; the device verbs (calibrated,
-uncalibrated, panorama, circle-views) also take `--device` (default
-`cuda`; `cpu` runs the CPU path on request).
+uncalibrated, panorama, circle-views, solver-bench) also take `--device`
+(default `cuda`; `cpu` runs the CPU path on request).
 """
 
 from __future__ import annotations
@@ -191,6 +192,58 @@ def cmd_circle_views(args):
     print(json.dumps({"views_written": n}))
 
 
+def cmd_solver_bench(args):
+    """Synthetic 3-point solver accuracy and timing against pixel noise, or
+    with `--artifacts DIR` the full CSV and figure set of the solver
+    comparisons (eval/experiments.py::solver_artifacts)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from .device import resolve_device
+    from .eval.metrics import frobenius_error
+    from .eval.synthetic import make_random_problems
+    from .solvers import solve_spherical_3pt
+
+    dev = resolve_device(args.device)
+    if args.artifacts:
+        from .eval.experiments import solver_artifacts
+
+        paths = solver_artifacts(args.artifacts, trials=args.trials,
+                                 stability_trials=args.trials * 5,
+                                 ransac_trials=max(args.trials // 10, 8),
+                                 disambiguate=args.disambiguate, device=dev)
+        print(json.dumps({"artifacts": paths}, indent=2))
+        return
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    rows = []
+    for noise in [0.0, 0.5, 1.0, 2.0, 5.0, 10.0]:
+        prob = make_random_problems(torch.Generator().manual_seed(int(noise * 10)),
+                                    batch=args.trials, num_corr=3, inward=args.inward,
+                                    rotation_deg=args.rotation, point_noise=noise / 600.0,
+                                    device=dev)
+        sync()
+        t0 = time.perf_counter()
+        Es, valid = solve_spherical_3pt(prob.u, prob.v)
+        sync()
+        dt = time.perf_counter() - t0
+        err = torch.where(valid, frobenius_error(Es, prob.E[:, None]),
+                          torch.full_like(valid, float("inf"), dtype=Es.dtype))
+        e = torch.min(err, dim=-1).values.cpu().numpy()
+        ok = torch.all(prob.valid, dim=-1).cpu().numpy()
+        rows.append({
+            "noise_px": noise,
+            "median_frob": float(np.median(e[ok])),
+            "mean_us_per_solve": 1e6 * dt / args.trials,
+        })
+    print(json.dumps(rows, indent=2))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="sphericalsfm_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -256,6 +309,19 @@ def main(argv=None):
     p.add_argument("--noloop", action="store_true")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_circle_views)
+
+    p = sub.add_parser("solver-bench", help="synthetic solver sweep")
+    p.add_argument("--trials", type=int, default=1000)
+    p.add_argument("--rotation", type=float, default=-1.0)
+    p.add_argument("--inward", action="store_true")
+    p.add_argument("--artifacts", default=None, metavar="DIR",
+                   help="write the full CSV+figure artifact set to DIR (noise curves, "
+                        "stability KDE, RANSAC box plots)")
+    p.add_argument("--disambiguate", action="store_true",
+                   help="score solvers after all-point Sampson disambiguation + cheirality "
+                        "decomposition (reference test_random_problems -disambiguate)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_solver_bench)
 
     args = ap.parse_args(argv)
     args.fn(args)

@@ -1,6 +1,6 @@
 """Reconstruction and relative-pose metrics — port of
-`sphericalsfm_tpu/eval/metrics.py`: `ate`, `rotation_error_deg`,
-`translation_angle_deg`, and the PhoneSweep evaluator's Racc/Tacc@τ
+`sphericalsfm_tpu/eval/metrics.py`: `ate`, `frobenius_error`,
+`rotation_error_deg`, `translation_angle_deg`, and the PhoneSweep evaluator's Racc/Tacc@τ
 (`accuracy_at`) and histogram-cumsum AUC@τ (`auc_at`). Inputs are tensors
 or numpy arrays; computed in float64."""
 
@@ -13,6 +13,17 @@ from ..geometry.so3 import rotation_geodesic
 
 def _t(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float64)
+
+
+def frobenius_error(E_est, E_gt) -> torch.Tensor:
+    """Sign-invariant Frobenius distance between normalized essential
+    matrices (..., 3, 3) -> (...)."""
+    def _n(E):
+        return E / torch.linalg.norm(E, dim=(-2, -1), keepdim=True)
+
+    a, b = _n(_t(E_est)), _n(_t(E_gt))
+    return torch.minimum(torch.linalg.norm(a - b, dim=(-2, -1)),
+                         torch.linalg.norm(a + b, dim=(-2, -1)))
 
 
 def rotation_error_deg(R_est, R_gt) -> torch.Tensor:

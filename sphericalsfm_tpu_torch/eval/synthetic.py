@@ -1,15 +1,116 @@
-"""Synthetic inputs: corruption of match tables — port of
-`sphericalsfm_tpu/eval/synthetic.py::corrupt_match_table`, the evaluation
-suite's stand-in for the mismatches of real handheld captures — and the
-large-scale BA ring scene of `scripts/bench_ba_scale.py`."""
+"""Synthetic inputs — port of `sphericalsfm_tpu/eval/synthetic.py`: random
+spherical relative-pose problems (`make_random_problems`, the solver
+bench's input), a circular capture (`make_circular_scene`), corruption of
+match tables (the evaluation suite's stand-in for the mismatches of real
+handheld captures), and the large-scale BA ring scene of
+`scripts/bench_ba_scale.py`.
+
+The random draws come from a `torch.Generator` and are made on its device,
+then moved to `device`: a CPU generator gives the same problems on the CPU
+and on the card. They are not the JAX stream (ROADMAP C2); the arithmetic
+on the draws is the JAX package's (`_build_problems`)."""
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..geometry.so3 import skew, so3_exp
 from ..optim.ba import BAProblem
+
+
+class RelativePoseProblem(NamedTuple):
+    u: torch.Tensor      # (..., N, 3) rays in view 1 (z = 1)
+    v: torch.Tensor      # (..., N, 3) rays in view 2 (z = 1)
+    E: torch.Tensor      # (..., 3, 3) ground-truth essential
+    R: torch.Tensor      # (..., 3, 3) ground-truth rotation
+    t: torch.Tensor      # (..., 3) ground-truth (unnormalized) translation
+    r: torch.Tensor      # (..., 3) ground-truth axis-angle
+    valid: torch.Tensor  # (..., N) cheirality mask (depth > 0 in view 2)
+
+
+def _build_problems(axis, angle, xy, d01, noise_u, noise_v, inward: bool,
+                    point_noise: float) -> RelativePoseProblem:
+    """The problems from their draws: raw axes (B, 3) N(0, 1), angles (B,)
+    in radians, first-view image points xy (B, N, 2), depth fractions d01
+    (B, N) in [0, 1), and N(0, 1) noise (B, N, 2) for each view (read only
+    when point_noise > 0). Depths 6 + 2·d01 (outward) or 0.5 + 0.25·d01
+    (inward) along the first-view ray, t = R·e₃ − e₃ (negated inward)."""
+    B, N = d01.shape
+    axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True)
+    r = axis * angle[..., None]
+    R = so3_exp(r)
+    e3 = torch.tensor([0.0, 0.0, 1.0], dtype=r.dtype, device=r.device)
+    t = R[..., :, 2] - e3
+    if inward:
+        t = -t
+    E = skew(t) @ R
+    ones = torch.ones((B, N, 1), dtype=r.dtype, device=r.device)
+    u = torch.cat([xy, ones], dim=-1)
+    depth = d01 * 0.25 + 0.5 if inward else d01 * 2.0 + 6.0
+    P2X = torch.einsum("bij,bnj->bni", R, u * depth[..., None]) + t[:, None, :]
+    valid = P2X[..., 2] > 0
+    z = torch.where(torch.abs(P2X[..., 2]) > 1e-12, P2X[..., 2], torch.full_like(d01, 1e-12))
+    v = torch.cat([P2X[..., :2] / z[..., None], ones], dim=-1)
+    if point_noise > 0:
+        u = torch.cat([u[..., :2] + point_noise * noise_u, ones], dim=-1)
+        v = torch.cat([v[..., :2] + point_noise * noise_v, ones], dim=-1)
+    return RelativePoseProblem(u=u, v=v, E=E, R=R, t=t, r=r, valid=valid)
+
+
+def make_random_problems(gen: torch.Generator, batch: int, num_corr: int, inward: bool = False,
+                         rotation_deg: float = -1.0, point_noise: float = 0.0,
+                         dtype=torch.float64, device=None) -> RelativePoseProblem:
+    """`batch` independent spherical relative-pose problems on `device`
+    (None: CUDA). rotation_deg < 0 draws the rotation magnitude uniformly
+    from [0, π), otherwise it is fixed; point_noise is the image-plane
+    noise σ in normalized units (σ_px / f)."""
+    dev = resolve_device(device)
+    kw = dict(generator=gen, dtype=dtype, device=gen.device)
+    axis = torch.randn((batch, 3), **kw)
+    if rotation_deg < 0:
+        angle = torch.rand((batch,), **kw) * math.pi
+    else:
+        angle = torch.full((batch,), rotation_deg * math.pi / 180.0, dtype=dtype, device=gen.device)
+    xy = torch.randn((batch, num_corr, 2), **kw)
+    d01 = torch.rand((batch, num_corr), **kw)
+    noise_u = torch.randn((batch, num_corr, 2), **kw)
+    noise_v = torch.randn((batch, num_corr, 2), **kw)
+    return _build_problems(*(x.to(dev) for x in (axis, angle, xy, d01, noise_u, noise_v)),
+                           inward, point_noise)
+
+
+def _circular_scene(dirs, u01, num_cameras: int, inward: bool, point_radius_range):
+    """Cameras on the unit circle in the xz-plane (camera i rotated about y
+    by 2πi/N, t = (0, 0, ∓1)) and points dirs/‖dirs‖ · radius, the radius
+    lo + (hi − lo)·u01 outward or 0.5·u01 inward."""
+    dtype, dev = dirs.dtype, dirs.device
+    phi = torch.arange(num_cameras, dtype=dtype, device=dev) * (2.0 * math.pi / num_cameras)
+    zeros = torch.zeros_like(phi)
+    poses_r = torch.stack([zeros, phi, zeros], dim=-1)
+    poses_t = torch.tensor([0.0, 0.0, 1.0 if inward else -1.0], dtype=dtype,
+                           device=dev).expand(num_cameras, 3)
+    lo, hi = point_radius_range
+    radii = u01 * 0.5 if inward else lo + (hi - lo) * u01
+    points = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True) * radii[..., None]
+    return poses_r, poses_t, points
+
+
+def make_circular_scene(gen: torch.Generator, num_cameras: int, num_points: int,
+                        inward: bool = False, point_radius_range=(4.0, 10.0),
+                        dtype=torch.float64, device=None):
+    """A synthetic circular spherical capture on `device` (None: CUDA):
+    (poses_r (N, 3), poses_t (N, 3), points (M, 3)), points in a shell of
+    `point_radius_range` around the rig (radius < 0.5 when inward)."""
+    dev = resolve_device(device)
+    kw = dict(generator=gen, dtype=dtype, device=gen.device)
+    dirs = torch.randn((num_points, 3), **kw)
+    u01 = torch.rand((num_points,), **kw)
+    return _circular_scene(dirs.to(dev), u01.to(dev), num_cameras, inward, point_radius_range)
 
 
 def corrupt_match_table(idx1, mmask, pair_j, counts, fraction: float, seed: int = 0):

@@ -3,9 +3,9 @@
 
 E = [t]_x R with t = R·e₃ − e₃ (negated when inward-facing); decomposition
 into the twisted-pair rotations R₁ = U D Vᵀ, R₂ = U Dᵀ Vᵀ, picked by
-alignment of the spherical translation with U·e₃. Also the midpoint depth
-test of the cheirality votes and the focal conjugation E' = S·E·S of the
-uncalibrated focal search.
+alignment of the spherical translation with U·e₃ or by a cheirality vote
+over inlier correspondences (midpoint depth test). Also the focal
+conjugation E' = S·E·S of the uncalibrated focal search.
 """
 
 from __future__ import annotations
@@ -92,6 +92,29 @@ def _midpoint_depth_sign(R: torch.Tensor, t: torch.Tensor, u: torch.Tensor,
     dv = (uu * wc - uw * uc) / det
     X = 0.5 * (u * du[..., None] + c + Rt_v * dv[..., None])
     return X[..., 2]
+
+
+def decompose_spherical_essential_cheirality(E: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                                             inlier_mask: torch.Tensor, inward: bool = False):
+    """Decomposition with a cheirality vote over the inlier correspondences:
+    if exactly one candidate rotation is shorter than π/2, take it;
+    otherwise the candidate with more midpoint-triangulated points at
+    positive depth (ties go to the second). E (..., 3, 3), u/v (..., N, 3),
+    inlier_mask (..., N). Returns (r, t)."""
+    R1, R2, _ = _rotation_candidates(E)
+    t1 = spherical_translation(R1, inward)
+    t2 = spherical_translation(R2, inward)
+    r1, r2 = so3_log(R1), so3_log(R2)
+    mag1 = torch.linalg.norm(r1, dim=-1)
+    mag2 = torch.linalg.norm(r2, dim=-1)
+    z1 = _midpoint_depth_sign(R1[..., None, :, :], t1[..., None, :], u, v)
+    z2 = _midpoint_depth_sign(R2[..., None, :, :], t2[..., None, :], u, v)
+    n1 = torch.sum((z1 > 0) & inlier_mask, dim=-1)
+    n2 = torch.sum((z2 > 0) & inlier_mask, dim=-1)
+    half = torch.pi / 2
+    pick1 = torch.where((mag2 > half) & (mag1 < half), True,
+                        torch.where((mag1 > half) & (mag2 < half), False, n1 > n2))[..., None]
+    return torch.where(pick1, r1, r2), torch.where(pick1, t1, t2)
 
 
 def conjugate_essential_by_focal(E: torch.Tensor, focal_ratio) -> torch.Tensor:

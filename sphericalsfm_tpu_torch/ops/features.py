@@ -9,7 +9,9 @@ wrap at the borders through `torch.roll` like the reference's `jnp.roll`
 (ROADMAP C4); top-k selections are stable descending sorts so ties keep the
 lowest index, as `lax.top_k` does (C3); the contrast gate comes from octave
 0 and applies to every octave (C5). Orientation histograms and descriptors
-accumulate with `scatter_add_` instead of one-hot matmuls. Runs in float32.
+accumulate per keypoint in a fixed order (`_binned_sum`) instead of
+one-hot matmuls, so every run on the card gives the same bits (ROADMAP
+C26). Runs in float32.
 """
 
 from __future__ import annotations
@@ -35,6 +37,23 @@ class Features(NamedTuple):
     response: torch.Tensor    # (B, K)
     descriptor: torch.Tensor  # (B, K, 128) L2-normalized
     valid: torch.Tensor       # (B, K) bool
+
+
+def _binned_sum(values: torch.Tensor, bins: torch.Tensor, nbins: int) -> torch.Tensor:
+    """Per row, `values` (..., P) summed into `nbins` bins by `bins` (...,
+    P), each bin in index order: a stable per-row sort and one segment sum.
+    `scatter_add_` would add with atomics on CUDA, in an order that changes
+    from run to run; this order is the same on every run and device."""
+    lead, P = values.shape[:-1], values.shape[-1]
+    rows = values.reshape(-1, P)
+    sb, order = torch.sort(bins.reshape(-1, P), dim=-1, stable=True)
+    edges = torch.arange(nbins, device=bins.device).expand(rows.shape[0], nbins).contiguous()
+    start = torch.searchsorted(sb, edges)                      # each bin's first slot
+    start = start + torch.arange(rows.shape[0], device=bins.device)[:, None] * P
+    offsets = torch.cat([start.reshape(-1), start.new_full((1,), rows.numel())])
+    out = torch.segment_reduce(torch.gather(rows, -1, order).reshape(-1), "sum",
+                               offsets=offsets, axis=0, unsafe=True)
+    return out.reshape(lead + (nbins,))
 
 
 def _gauss_taps(sigma: float, dtype, device) -> torch.Tensor:
@@ -295,8 +314,7 @@ def detect_batch(images: torch.Tensor, max_keypoints: int = 1024,
     wgt = torch.exp(-d2 / (2.0 * (4.0 * r_ori) ** 2)) * (d2 <= (8.0 * r_ori) ** 2)
     bins = torch.remainder(
         torch.floor((ang + math.pi) / (2 * math.pi) * _ORI_BINS).to(torch.int64), _ORI_BINS)
-    hist = torch.zeros((B, K, _ORI_BINS), dtype=torch.float32, device=dev)
-    hist.scatter_add_(-1, bins.reshape(B, K, -1), (mag * wgt).reshape(B, K, -1))
+    hist = _binned_sum((mag * wgt).reshape(B, K, -1), bins.reshape(B, K, -1), _ORI_BINS)
     hist = (torch.roll(hist, 1, -1) + hist + torch.roll(hist, -1, -1)) / 3.0
     theta = ((torch.argmax(hist, dim=-1).to(torch.float32) + 0.5) / _ORI_BINS
              ) * 2 * math.pi - math.pi
@@ -315,8 +333,7 @@ def detect_batch(images: torch.Tensor, max_keypoints: int = 1024,
         torch.remainder(ang2 + 3 * math.pi, 2 * math.pi) / (2 * math.pi) * 8
     ).to(torch.int64), 8)
     comb = (cell_y * 4 + cell_x) * 8 + obin
-    desc = torch.zeros((B, K, 128), dtype=torch.float32, device=dev)
-    desc.scatter_add_(-1, comb.reshape(B, K, -1), (mag * wgt2).reshape(B, K, -1))
+    desc = _binned_sum((mag * wgt2).reshape(B, K, -1), comb.reshape(B, K, -1), 128)
 
     desc = desc / torch.clamp(torch.linalg.norm(desc, dim=-1, keepdim=True), min=1e-12)
     desc = torch.clamp(desc, max=0.2)

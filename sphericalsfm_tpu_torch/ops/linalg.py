@@ -10,6 +10,8 @@ solver depend on the exact basis chosen).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -116,6 +118,168 @@ def smallest_eigvec_3x3(S: torch.Tensor) -> torch.Tensor:
     use1 = (~use0) & (n1 >= n2)
     v = torch.where(use0[..., None], c0, torch.where(use1[..., None], c1, c2))
     return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-30)
+
+
+def _qr(A: torch.Tensor):
+    """Householder QR of batched (..., m, n) without forming Q: returns R
+    and a function applying Qᵀ to vectors (..., m). (Forming Q on CUDA
+    runs one library call per matrix; `geqrf` and the reflectors applied
+    by hand are batched.)"""
+    a, tau = torch.geqrf(A)
+    m, n = A.shape[-2], A.shape[-1]
+    V = torch.tril(a, -1)[..., :, :min(m, n)] + torch.eye(m, min(m, n), dtype=A.dtype,
+                                                             device=A.device)
+
+    def apply_qt(b: torch.Tensor) -> torch.Tensor:
+        for k in range(V.shape[-1]):  # Qᵀ = H_{k-1} ⋯ H₀, Hₖ = I − τₖ vₖvₖᵀ
+            vk = V[..., :, k]
+            b = b - (tau[..., k] * torch.sum(vk * b, dim=-1))[..., None] * vk
+        return b
+
+    return torch.triu(a[..., :n, :]), apply_qt
+
+
+def eig_real_batched(M: torch.Tensor, aberth_iters: int = 60, inv_iters: int = 4):
+    """Real eigenpairs of small nonsymmetric matrices by root finding and
+    inverse iteration, no general eig — port of
+    `sphericalsfm_tpu/ops/linalg.py::eig_real_batched`.
+
+    The eigenvalues are the roots of the characteristic polynomial
+    (Faddeev–LeVerrier coefficients of the Gershgorin-normalized matrix,
+    rescaled to the geometric-mean root radius), all found at once by
+    Aberth–Ehrlich iteration in (re, im) planes. Each root's Re + Im is a
+    real-eigenvalue candidate (a near-double real pair stagnates as a
+    complex pair a ± iδ′); QR-clamped inverse iteration gives its null
+    vector, a bordered-system Newton polish [[M−λI, −v], [vᵀ, 0]] takes the
+    pair to machine precision, a scale-aware residual test keeps the true
+    eigenpairs, and candidates that converged onto one eigenvalue keep only
+    their smallest-residual member.
+
+    M (..., n, n) → (lam (..., n), V (..., n, n) column eigenvectors,
+    valid (..., n)); invalid (complex or failed) slots are zeros."""
+    n = M.shape[-1]
+    dtype, dev = M.dtype, M.device
+    feps = torch.finfo(dtype).eps
+    flatM = M.reshape(-1, n, n)
+    B = flatM.shape[0]
+    eye = torch.eye(n, dtype=dtype, device=dev)
+
+    # scale by the Gershgorin bound so the roots live in O(1)
+    R_bound = torch.clamp(torch.amax(torch.sum(torch.abs(flatM), dim=-1), dim=-1), min=1e-30)
+    Mn = flatM / R_bound[:, None, None]
+
+    # characteristic polynomial by Faddeev–LeVerrier, z^n … z^0
+    Bk = eye.expand(B, n, n)
+    coeffs = [torch.ones(B, dtype=dtype, device=dev)]
+    for k in range(1, n + 1):
+        Ak = Mn @ Bk
+        ck = -torch.diagonal(Ak, dim1=-2, dim2=-1).sum(-1) / k
+        coeffs.append(ck)
+        Bk = Ak + ck[:, None, None] * eye
+    pc = torch.stack(coeffs, dim=-1)                              # (B, n+1)
+    # z = s·w with s = |c_n|^(1/n), the geometric-mean root radius
+    s_pow = torch.clamp(torch.clamp(torch.abs(pc[:, -1]), min=1e-60) ** (1.0 / n), 1e-12, 1e2)
+    pc = pc / s_pow[:, None] ** torch.arange(n + 1, dtype=dtype, device=dev)
+    dc = pc[:, :-1] * torch.arange(n, 0, -1, dtype=dtype, device=dev)   # p'
+
+    def newton_ratio(zr, zi):
+        """p/p' at z = zr + i·zi by Horner, all (B, n) planes."""
+        pr = pc[:, 0:1].expand_as(zr)
+        pi = torch.zeros_like(zr)
+        for k in range(1, n + 1):
+            pr, pi = pr * zr - pi * zi + pc[:, k:k + 1], pr * zi + pi * zr
+        qr_ = dc[:, 0:1].expand_as(zr)
+        qi_ = torch.zeros_like(zr)
+        for k in range(1, n):
+            qr_, qi_ = qr_ * zr - qi_ * zi + dc[:, k:k + 1], qr_ * zi + qi_ * zr
+        d = torch.clamp(qr_ * qr_ + qi_ * qi_, min=1e-300)
+        return (pr * qr_ + pi * qi_) / d, (pi * qr_ - pr * qi_) / d
+
+    # Aberth–Ehrlich: zᵢ ← zᵢ − Nᵢ / (1 − Nᵢ·Σ_{j≠i} 1/(zᵢ−zⱼ))
+    ang = 2.0 * math.pi * (torch.arange(n, dtype=dtype, device=dev) + 0.5) / n + 0.4
+    zr = (1.2 * torch.cos(ang)).expand(B, n)
+    zi = (1.2 * torch.sin(ang)).expand(B, n)
+    offdiag = ~torch.eye(n, dtype=torch.bool, device=dev)
+    for _ in range(aberth_iters):
+        Nr, Ni = newton_ratio(zr, zi)
+        dr = zr[:, :, None] - zr[:, None, :]
+        di = zi[:, :, None] - zi[:, None, :]
+        d2 = torch.where(offdiag, torch.clamp(dr * dr + di * di, min=1e-24), 1.0)
+        sr = torch.sum(torch.where(offdiag, dr / d2, 0.0), dim=-1)
+        si = torch.sum(torch.where(offdiag, -di / d2, 0.0), dim=-1)
+        den_r = 1.0 - (Nr * sr - Ni * si)
+        den_i = -(Nr * si + Ni * sr)
+        dd = torch.clamp(den_r * den_r + den_i * den_i, min=1e-24)
+        wr = (Nr * den_r + Ni * den_i) / dd
+        wi = (Ni * den_r - Nr * den_i) / dd
+        wr = torch.clamp(torch.where(torch.isfinite(wr), wr, 0.0), -0.5, 0.5)
+        wi = torch.clamp(torch.where(torch.isfinite(wi), wi, 0.0), -0.5, 0.5)
+        zr, zi = zr - wr, zi - wi
+
+    # real-eigenvalue candidates from every root, at the matrix's scale
+    lam_c = (zr + zi) * s_pow[:, None]                            # (B, n)
+
+    # inverse iteration for null vectors of Mn − λI through QR with the
+    # R diagonal clamped away from zero
+    Ra, qt = _qr(Mn[:, None] - lam_c[..., None, None] * eye)      # (B, n, n, n)
+    diagR = torch.diagonal(Ra, dim1=-2, dim2=-1)
+    delta = 10.0 * feps * torch.clamp(torch.amax(torch.abs(diagR), dim=-1, keepdim=True),
+                                      min=1e-30)
+    sgn = torch.where(diagR < 0, -1.0, 1.0).to(dtype)
+    clamped = torch.where(torch.abs(diagR) < delta, sgn * delta, diagR)
+    Rsafe = Ra + (clamped - diagR)[..., None] * eye
+    v = torch.ones((B, n, n), dtype=dtype, device=dev)
+    for _ in range(inv_iters):
+        v = torch.linalg.solve_triangular(Rsafe, qt(v)[..., None], upper=True)[..., 0]
+        v = v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-30)
+
+    # eigenpair Newton polish on the bordered system
+    # [[M−λI, −v], [vᵀ, 0]]·[dv; dλ] = [−(M−λI)v; 0], all B·n pairs at once
+    Mi = Mn[:, None].expand(B, n, n, n).reshape(B * n, n, n)
+    lam_i = lam_c.reshape(B * n)
+    v_i = v.reshape(B * n, n)
+    zero = torch.zeros((B * n, 1, 1), dtype=dtype, device=dev)
+    for _ in range(10):
+        Ai = Mi - lam_i[:, None, None] * eye
+        r_i = torch.einsum("bij,bj->bi", Ai, v_i)
+        J = torch.cat([torch.cat([Ai, -v_i[:, :, None]], dim=2),
+                       torch.cat([v_i[:, None, :], zero], dim=2)], dim=1)
+        rhs = torch.cat([-r_i, zero[:, 0]], dim=1)
+        Rj, qt = _qr(J)
+        dx = torch.linalg.solve_triangular(Rj, qt(rhs)[..., None], upper=True)[..., 0]
+        ok = torch.isfinite(dx).all(dim=-1)
+        v_i = torch.where(ok[:, None], v_i + dx[:, :n], v_i)
+        v_i = v_i / torch.clamp(torch.linalg.norm(v_i, dim=-1, keepdim=True), min=1e-30)
+        lam_i = torch.where(ok, lam_i + dx[:, n], lam_i)
+    lam_p, v = lam_i.reshape(B, n), v_i.reshape(B, n, n)
+    lam_c = torch.where(torch.isfinite(lam_p), lam_p, lam_c)
+
+    # validity: v is a null vector of Mn − λI (scale-aware residual)
+    res = torch.linalg.norm(torch.einsum("bkij,bkj->bki", Mn[:, None] - lam_c[..., None, None]
+                                         * eye, v), dim=-1)
+    matn = torch.sqrt(torch.sum(Mn * Mn, dim=(-2, -1)) / n)[:, None]
+    valid = (res < 1e2 * feps ** 0.5 * (1.0 + matn)) & torch.isfinite(lam_c)
+
+    # dedupe after the polish: candidates on one eigenvalue keep only the
+    # smallest-residual member (index tie-break); each slot's radius widens
+    # with its own residual, so a stalled slot still collapses onto the
+    # accurate one while close genuine pairs stay apart
+    radius = torch.maximum(1e4 * feps * (1.0 + torch.abs(lam_c[:, :, None])),
+                           30.0 * res[:, :, None])
+    close = torch.abs(lam_c[:, :, None] - lam_c[:, None, :]) <= radius
+    res_key = torch.where(valid, res, torch.full_like(res, float("inf")))
+    idx = torch.arange(n, device=dev)
+    better = (res_key[:, None, :] < res_key[:, :, None]) | (
+        (res_key[:, None, :] == res_key[:, :, None]) & (idx[None, None, :] < idx[None, :, None]))
+    shadowed = torch.any(close & better & valid[:, None, :]
+                         & (idx[None, None, :] != idx[None, :, None]), dim=-1)
+    valid = valid & ~shadowed
+
+    lam_out = (lam_c * R_bound[:, None]).reshape(M.shape[:-1])
+    V = v.transpose(-1, -2).reshape(M.shape)                      # columns = eigenvectors
+    valid = valid.reshape(M.shape[:-1])
+    return (torch.where(valid, lam_out, torch.zeros_like(lam_out)),
+            torch.where(valid[..., None, :], V, torch.zeros_like(V)), valid)
 
 
 def svd3_rank2(E: torch.Tensor):

@@ -4,13 +4,14 @@
 Per-camera axis-angle rotations, cycle residual scale·log(R₁R₀ᵀR_measᵀ)
 with scale = 1/max‖log R_meas‖, SoftL1(0.03) loss, first camera fixed.
 Each LM iteration takes per-edge Jacobian blocks from `torch.func.jacfwd`,
-assembles the dense (3N [+1])² normal equations with `index_add_`, and
-solves by an equilibrated Cholesky. The uncalibrated graph adds one scalar
-parameter, the focal multiplier f: each measurement splits into an in-plane
+assembles the dense (3N [+1])² normal equations by sorted segment sums
+(each node and node pair adds its edges in index order, so a run on the
+card repeats bit for bit), and solves by an equilibrated Cholesky. The
+uncalibrated graph adds one scalar parameter, the focal multiplier f: each measurement splits into an in-plane
 axis rotation Rxy(θxy) and a roll Rz(θz), and θxy warps as
 θ' = atan2(2f·sinθxy, (1+f²)cosθxy + (1−f²)), f bound-constrained.
 Above 400 frames ("auto") the LM step is matrix-free instead: block-Jacobi
-preconditioned CG over the edge list, the node reductions by `index_add_`.
+preconditioned CG over the edge list, with the same node reductions.
 
 The focal sweep runs every hypothesis at once: the relative rotations at T
 focal hypotheses are a (T, E, 3) batch, the rotation init composes a
@@ -131,9 +132,18 @@ def _robust_block_lm(residual_edge, rotations_r, extra0, edge_i, edge_j, edge_da
         rho = soft_l1_rho(torch.sum(res * res, dim=-1), SOFT_L1_SCALE)
         return 0.5 * torch.sum(torch.where(live, rho, torch.zeros_like(rho)))
 
+    # reductions onto nodes and node pairs: sorted segment sums (index_add_
+    # adds with atomics on the card, in an order that changes; ROADMAP C26)
+    def segments(keys, nseg):
+        counts = torch.bincount(keys, minlength=nseg)
+        return torch.argsort(keys, stable=True), torch.cat([counts.new_zeros(1),
+                                                            torch.cumsum(counts, 0)])
+
+    node_order, node_ptr = segments(torch.cat([ei, ej]), N)
+
     def node_sum(x0, x1):
-        out = torch.zeros((N,) + x0.shape[1:], dtype=dtype, device=dev)
-        return out.index_add_(0, ei, x0).index_add_(0, ej, x1)
+        return torch.segment_reduce(torch.cat([x0, x1])[node_order], "sum", offsets=node_ptr,
+                                    axis=0, unsafe=True)
 
     def edge_terms(rots, extra):
         """Weighted edge blocks A0 = J0ᵀwJ0, A1, C01 = J0ᵀwJ1, gradients
@@ -158,11 +168,13 @@ def _robust_block_lm(residual_edge, rotations_r, extra0, edge_i, edge_j, edge_da
                 torch.einsum("edi,ed->ei", J1w, Jf), torch.sum(w * torch.sum(Jf * Jf, dim=-1)),
                 torch.sum(w * torch.sum(Jf * res, dim=-1)))
 
+    if solver == "dense":
+        pair_order, pair_ptr = segments(ei * N + ej, N * N)
+
     def dense_step(rots, extra, lam):
         A0, A1, C01, g0, g1, f0, f1, Hff, gf = edge_terms(rots, extra)
-        H = torch.zeros((N * N, 3, 3), dtype=dtype, device=dev)
-        H.index_add_(0, ei * N + ej, C01)
-        H = H.reshape(N, N, 3, 3)
+        H = torch.segment_reduce(C01[pair_order], "sum", offsets=pair_ptr, axis=0,
+                                 unsafe=True).reshape(N, N, 3, 3)
         H = H + H.permute(1, 0, 3, 2)
         ar = torch.arange(N, device=dev)
         H[ar, ar] += node_sum(A0, A1)

@@ -3,9 +3,9 @@
 `estimate_pairwise_five_point`, `pad_match_table`, `all_pairs`).
 
 Matched pixels lift through K⁻¹ to rays in float64 on the device; each
-chunk of pairs runs the batched adaptive spherical RANSAC (or, in five-point
-mode, the general 5-point RANSAC) with the squared MSAC threshold
-(px·K⁻¹₀₀)².
+chunk of pairs runs the batched adaptive spherical RANSAC (the static one
+with `adaptive=False`; in five-point mode, the general 5-point RANSAC) with
+the squared MSAC threshold (px·K⁻¹₀₀)².
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 from ..device import GEOM_DTYPE
 from ..geometry.pose import Intrinsics
 from ..ransac.general_essential import general_essential_ransac
-from ..ransac.spherical import spherical_ransac_adaptive
+from ..ransac.spherical import spherical_ransac, spherical_ransac_adaptive
 
 
 class PairwiseResult(NamedTuple):
@@ -52,10 +52,8 @@ def estimate_pairwise(
     device=None,
 ) -> PairwiseResult:
     """Spherical relative poses for every candidate pair, on `device`
-    (default: the generator's device)."""
-    if not adaptive:
-        raise NotImplementedError(
-            "the static RANSAC engine is not ported; use adaptive=True")
+    (default: the generator's device). `adaptive=False` runs the static
+    engine with `num_hypotheses` triples per pair."""
     P, Nmax = idx0.shape
     if P == 0:
         return PairwiseResult(
@@ -71,14 +69,15 @@ def estimate_pairwise(
     outs = []
     for s in range(0, P, chunk_size):
         e = min(s + chunk_size, P)
-        res = spherical_ransac_adaptive(
-            gen,
-            torch.as_tensor(u[s:e], dtype=GEOM_DTYPE, device=dev),
-            torch.as_tensor(v[s:e], dtype=GEOM_DTYPE, device=dev),
-            torch.as_tensor(match_mask[s:e], device=dev),
-            sq_thresh, round_size=round_size, max_rounds=max_rounds,
-            confidence=confidence, inward=inward)
-        outs.append(res)
+        args = (gen, torch.as_tensor(u[s:e], dtype=GEOM_DTYPE, device=dev),
+                torch.as_tensor(v[s:e], dtype=GEOM_DTYPE, device=dev),
+                torch.as_tensor(match_mask[s:e], device=dev), sq_thresh)
+        if adaptive:
+            outs.append(spherical_ransac_adaptive(*args, round_size=round_size,
+                                                  max_rounds=max_rounds, confidence=confidence,
+                                                  inward=inward))
+        else:
+            outs.append(spherical_ransac(*args, num_hypotheses=num_hypotheses, inward=inward))
     return _gather_results(outs, pair_i, pair_j, match_mask, min_num_inliers)
 
 

@@ -36,12 +36,15 @@ def _essential_of(params):
 def general_essential_ransac(gen: torch.Generator, u: torch.Tensor, v: torch.Tensor,
                              mask: torch.Tensor, sq_thresh: float,
                              num_hypotheses: int = 256, final_least_squares: bool = True,
-                             refine_iters: int = 20) -> GeneralRansacResult:
+                             refine_iters: int = 20,
+                             solver_method: str = "auto") -> GeneralRansacResult:
     """u, v (B, N, 3) rays, mask (B, N); `num_hypotheses` 5-point samples
-    per pair drawn from `gen`."""
+    per pair drawn from `gen`; `solver_method` is the 5-point solver's
+    eigen method ("auto", "eig" or "qr")."""
     B = u.shape[0]
     samples = sample_tuples(gen, mask, num_hypotheses, 5)                # (B, M, 5)
-    Es, valid = solve_essential_5pt(_gather_rows(u, samples), _gather_rows(v, samples))
+    Es, valid = solve_essential_5pt(_gather_rows(u, samples), _gather_rows(v, samples),
+                                    method=solver_method)
     Es = Es.reshape(B, -1, 3, 3)
     errs = sampson_error(Es, u[:, None], v[:, None])                     # (B, S, N)
     best, score, inliers = best_model(errs, valid.reshape(B, -1), sq_thresh, mask)

@@ -7,7 +7,8 @@ det E) are interpolated at 20 fixed nodes and turned into monomial
 coefficients by the precomputed inverse Vandermonde; eliminating the ten
 degree-3 monomials gives the 10×10 action matrix of multiplication by x,
 whose eigenvectors carry (x, y, z). The eigendecomposition is
-`torch.linalg.eig`, the JAX package's CPU path.
+`torch.linalg.eig` ("eig", the JAX package's CPU path) or
+`ops/linalg.py::eig_real_batched` ("qr", its path off the CPU).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from ..geometry.essential import _midpoint_depth_sign
-from ..ops.linalg import det3x3
+from ..ops.linalg import det3x3, eig_real_batched
 
 # Monomial order: degree-3 block (10) then the degree-≤2 quotient basis (10).
 _DEG3 = [(3, 0, 0), (2, 1, 0), (2, 0, 1), (1, 2, 0), (1, 1, 1),
@@ -90,10 +91,18 @@ def _action_matrix(C: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, dim=-2)
 
 
-def solve_essential_5pt(u: torch.Tensor, v: torch.Tensor):
+def solve_essential_5pt(u: torch.Tensor, v: torch.Tensor, method: str = "auto"):
     """Essential matrices from ≥5 ray correspondences (..., N, 3).
 
-    Returns (Es (..., 10, 3, 3) unit-norm candidates, valid (..., 10))."""
+    Returns (Es (..., 10, 3, 3) unit-norm candidates, valid (..., 10)).
+    `method`: "eig" (`torch.linalg.eig`), "qr" (`eig_real_batched`, root
+    finding and inverse iteration in batched real arithmetic) or "auto":
+    "eig" for CPU tensors and "qr" for CUDA ones, as the JAX package picks
+    by backend."""
+    if method == "auto":
+        method = "eig" if u.device.type == "cpu" else "qr"
+    if method not in ("eig", "qr"):
+        raise ValueError(f"unknown eigen method {method!r}")
     dtype, dev = u.dtype, u.device
     A = epipolar_rows_general(u, v)
     _, V = torch.linalg.eigh(A.transpose(-1, -2) @ A)
@@ -109,9 +118,13 @@ def solve_essential_5pt(u: torch.Tensor, v: torch.Tensor):
     # refuses on CUDA: it goes in as zeros and its candidates are invalid.
     M = _action_matrix(C)
     finite = torch.isfinite(M).all(dim=-1).all(dim=-1)
-    lam, Vc = torch.linalg.eig(torch.where(finite[..., None, None], M, torch.zeros_like(M)))
+    M = torch.where(finite[..., None, None], M, torch.zeros_like(M))
+    if method == "eig":
+        lam, Vc = torch.linalg.eig(M)
+        real_ok = torch.abs(lam.imag) < 1e-6 * (1.0 + torch.abs(lam.real))
+    else:
+        _, Vc, real_ok = eig_real_batched(M)
     Vc = Vc.transpose(-1, -2)                                     # rows = eigenvectors
-    real_ok = torch.abs(lam.imag) < 1e-6 * (1.0 + torch.abs(lam.real))
     const = Vc[..., 9]
     ok_const = torch.abs(const) > 1e-12
     const_safe = torch.where(ok_const, const, torch.ones_like(const))

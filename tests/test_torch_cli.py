@@ -1,8 +1,9 @@
-"""The port's CLI verbs of the panorama slice, driven as a user would
+"""The port's CLI verbs, driven as a user would
 (`sphericalsfm_tpu_torch.cli.main`, `--device cpu`) on a tiny rendered
 capture written as PNG frames: panorama, circle-views, nerf-export and
-evaluate, each held to the JAX package's function on the same files; and
-undistort against the JAX package's verb, byte for byte."""
+evaluate, each held to the JAX package's function on the same files;
+undistort against the JAX package's verb, byte for byte; and solver-bench
+against the JAX package's verb."""
 
 import json
 import os
@@ -120,3 +121,46 @@ def test_undistort_matches_jax_verb(distortion, rotate, tmp_path, capsys):
     for name in files:
         with open(tmp_path / "torch" / name, "rb") as a, open(tmp_path / "jax" / name, "rb") as b:
             assert a.read() == b.read(), name
+
+
+def test_solver_bench_verb(tmp_path, capsys, monkeypatch):
+    """The sweep against the JAX verb's on the same problems (the port's
+    problem source replaced by the JAX package's for the same seed
+    integers): the same rows, medians to rtol 1e-6, exact solutions at
+    roundoff; and `--artifacts` writes the figure set."""
+    import jax
+
+    from sphericalsfm_tpu.eval.synthetic import make_random_problems as jax_problems
+    from sphericalsfm_tpu_torch.eval import synthetic
+
+    def make(gen, batch, num_corr, inward=False, rotation_deg=-1.0, point_noise=0.0,
+             dtype=torch.float64, device=None):
+        p = jax_problems(jax.random.PRNGKey(gen.initial_seed()), batch=batch,
+                         num_corr=num_corr, inward=inward, rotation_deg=rotation_deg,
+                         point_noise=point_noise)
+        return synthetic.RelativePoseProblem(*(torch.as_tensor(np.array(x)) for x in p))
+
+    with monkeypatch.context() as m:
+        m.setattr(synthetic, "make_random_problems", make)
+        rows = _run(["solver-bench", "--trials", "300", "--device", "cpu"], capsys)
+    jax_cli.main(["solver-bench", "--trials", "300"])
+    ref = json.loads(capsys.readouterr().out)
+    assert [list(r) for r in rows] == [list(r) for r in ref]
+    for r, j in zip(rows, ref):
+        assert r["noise_px"] == j["noise_px"] and r["mean_us_per_solve"] > 0
+        if r["noise_px"] == 0.0:
+            assert r["median_frob"] < 1e-10 and j["median_frob"] < 1e-10
+        else:
+            assert r["median_frob"] == pytest.approx(j["median_frob"], rel=1e-6), (r, j)
+    out = _run(["solver-bench", "--trials", "40", "--artifacts", str(tmp_path / "art"),
+                "--disambiguate", "--device", "cpu"], capsys)
+    assert out["artifacts"] and all(os.path.getsize(p) > 500 for p in out["artifacts"])
+    assert {"noise_comparison.csv", "stability.csv", "ransac.csv", "figures"} <= set(
+        os.listdir(tmp_path / "art"))
+
+
+def test_solver_bench_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["solver-bench", "--trials", "8"])

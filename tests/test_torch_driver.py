@@ -175,6 +175,14 @@ def _call_without_device(entry, tmp_path):
     from sphericalsfm_tpu_torch.pipeline.tracks import build_feature_tracks
 
     gray, color = _tiny_frames()
+    if entry in ("make_random_problems", "make_circular_scene"):
+        from sphericalsfm_tpu_torch.eval import synthetic
+
+        return getattr(synthetic, entry)(torch.Generator().manual_seed(0), 4, 8)
+    if entry in _EXPERIMENTS:
+        from sphericalsfm_tpu_torch.eval import experiments
+
+        return getattr(experiments, entry)(str(tmp_path / "out.csv"))
     if entry in ("make_stereo_panoramas", "make_circle_views"):
         from sphericalsfm_tpu_torch.pipeline import stereo_panorama
 
@@ -198,9 +206,15 @@ def _call_without_device(entry, tmp_path):
     return SfMMap.build(Intrinsics(FOCAL, W / 2, H / 2), np.zeros((2, 3)), tracks, xy)
 
 
+_EXPERIMENTS = ("noise_experiment", "stability_experiment", "timing_experiment",
+                "ransac_experiment", "relpose_comparison", "noise_comparison",
+                "stability_comparison", "ransac_comparison", "solver_artifacts")
+
+
 @pytest.mark.parametrize("entry", ["run_frontend", "detect_features", "match_pairs",
                                    "SfMMap.build", "make_stereo_panoramas",
-                                   "make_circle_views"])
+                                   "make_circle_views", "make_random_problems",
+                                   "make_circular_scene", *_EXPERIMENTS])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without `device=`, each public entry point means CUDA: with no card
     it raises resolve_device's error instead of running on the CPU."""

@@ -66,3 +66,18 @@ def test_shapes_and_invariants(both, frames):
     # conv2d picks its algorithm by batch size: float32 roundoff moves the
     # subpixel refinement by well under a thousandth of a pixel
     np.testing.assert_allclose(single.xy.numpy(), ft.xy[0].numpy(), atol=1e-3)
+
+
+@pytest.mark.parametrize("nbins", [36, 128])
+def test_sorted_binned_sum_matches_scatter_add(nbins):
+    """The detector's fixed-order histogram sum (a stable per-row sort and
+    one segment sum) gives scatter_add_'s bits on the CPU, empty bins
+    included."""
+    from sphericalsfm_tpu_torch.ops.features import _binned_sum
+
+    g = torch.Generator().manual_seed(0)
+    vals = torch.rand((3, 40, 1600), generator=g) * torch.rand((3, 40, 1600), generator=g)
+    bins = torch.randint(0, nbins, (3, 40, 1600), generator=g)
+    bins[0, 0] = 5                              # one full bin, every other bin empty
+    expected = torch.zeros((3, 40, nbins)).scatter_add_(-1, bins, vals)
+    assert torch.equal(_binned_sum(vals, bins, nbins), expected)

@@ -273,3 +273,91 @@ def test_estimate_focal_sixpoint_helper():
                                        pair_i + 1, idx, idx, good, **kw)
     assert info["pairs_used"] >= 3, info
     assert abs(ft - f_px) / f_px < 0.05, (ft, info)
+
+
+# --- the 7- and 8-point baselines and frobenius_error -------------------------
+
+def _same_up_to_sign(a, b, atol):
+    s = np.sign(np.sum(a * b, axis=(-2, -1)))[..., None, None]
+    np.testing.assert_allclose(a * s, b, atol=atol)
+
+
+@pytest.mark.parametrize("n_corr,noise", [(16, 1.0 / 600), (40, 2.0 / 600)])
+def test_8pt_matches_jax(n_corr, noise):
+    """Overdetermined noisy rays: E to 1e-10 up to sign. (With exactly 8
+    exact rays the null vector of AᵀA is fixed only to ε·cond(AᵀA); there
+    both packages recover the truth, `test_8pt_exact_and_noise`.)"""
+    from sphericalsfm_tpu.solvers.eight_point import solve_essential_8pt as jsolve8
+    from sphericalsfm_tpu_torch.solvers.eight_point import solve_essential_8pt
+
+    u, v, *_ = _general_problems(8, 64, n_corr, noise=noise)
+    Ej, vj = (np.asarray(x) for x in jsolve8(jnp.asarray(u), jnp.asarray(v)))
+    Et, vt = (x.numpy() for x in solve_essential_8pt(torch.as_tensor(u), torch.as_tensor(v)))
+    np.testing.assert_array_equal(vt, vj)
+    _same_up_to_sign(Et, Ej, 1e-10)
+
+
+@pytest.mark.parametrize("noise", [0.0, 1.0 / 600])
+def test_7pt_matches_jax(noise):
+    """Per problem, the same number of real-root candidates, and each port
+    candidate near a JAX candidate (sign-invariant Frobenius). The two
+    eigh routines span the 2-dim null space with different bases, so the
+    cubic's parameter and its root order differ; near-double roots fix a
+    candidate only to ~√ε: the median distance is held to 1e-10, the
+    largest to 1e-6."""
+    from sphericalsfm_tpu.solvers.seven_point import solve_essential_7pt as jsolve7
+    from sphericalsfm_tpu_torch.eval.metrics import frobenius_error
+    from sphericalsfm_tpu_torch.solvers.seven_point import solve_essential_7pt
+
+    u, v, *_ = _general_problems(10, 64, 7, noise=noise)
+    Ej, vj = (np.asarray(x) for x in jsolve7(jnp.asarray(u), jnp.asarray(v)))
+    Et, vt = (x.numpy() for x in solve_essential_7pt(torch.as_tensor(u), torch.as_tensor(v)))
+    np.testing.assert_array_equal(vt.sum(-1), vj.sum(-1))
+    nearest = np.concatenate([
+        frobenius_error(torch.as_tensor(Et[b][vt[b]])[:, None],
+                        torch.as_tensor(Ej[b][vj[b]])[None]).numpy().min(axis=1)
+        for b in range(len(u)) if vt[b].any()])
+    assert np.median(nearest) < 1e-10 and nearest.max() < 1e-6, np.quantile(nearest, [0.5, 1])
+
+
+def test_7pt_exact_recovery():
+    """test_five_point.py::test_7pt_baseline_exact_recovery on the port."""
+    from sphericalsfm_tpu_torch.eval.metrics import frobenius_error
+    from sphericalsfm_tpu_torch.solvers.seven_point import solve_essential_7pt
+
+    u, v, E, _, _, good = _general_problems(9, 64, 7)
+    E7, valid = solve_essential_7pt(torch.as_tensor(u), torch.as_tensor(v))
+    err = torch.where(valid, frobenius_error(E7, torch.as_tensor(E)[:, None]),
+                      torch.tensor(float("inf"), dtype=torch.float64)).min(-1).values.numpy()
+    ok = good.all(axis=-1)
+    assert np.median(err[ok]) < 1e-6, np.median(err[ok])
+    assert valid.any(dim=-1).all()
+
+
+def test_8pt_exact_and_noise():
+    """test_five_point.py::test_8pt_baseline_exact_and_noise on the port."""
+    from sphericalsfm_tpu_torch.eval.metrics import frobenius_error
+    from sphericalsfm_tpu_torch.solvers.eight_point import solve_essential_8pt
+
+    for seed, noise, bound in ((6, 0.0, 1e-8), (7, 1.0 / 600, 0.5)):
+        u, v, E, _, _, good = _general_problems(seed, 64, 16, noise=noise)
+        E8, valid = solve_essential_8pt(torch.as_tensor(u), torch.as_tensor(v))
+        err = frobenius_error(E8, torch.as_tensor(E)).numpy()
+        ok = good.all(axis=-1) & valid.numpy()
+        assert np.median(err[ok]) < bound, np.median(err[ok])
+
+
+def test_frobenius_error_matches_jax():
+    from sphericalsfm_tpu.eval.metrics import frobenius_error as jfrob
+    from sphericalsfm_tpu_torch.eval.metrics import frobenius_error
+
+    rng = np.random.default_rng(12)
+    a = rng.normal(size=(64, 3, 3))
+    b = np.where(rng.uniform(size=(64, 1, 1)) < 0.5, -a, a) * rng.uniform(0.5, 2, (64, 1, 1))
+    b = b + rng.normal(size=b.shape) * np.geomspace(1e-12, 1.0, 64)[:, None, None]
+    got = frobenius_error(torch.as_tensor(a), torch.as_tensor(b)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jfrob(jnp.asarray(a), jnp.asarray(b))),
+                               rtol=1e-12, atol=1e-15)
+    # sign- and scale-invariant: ±2E is at distance 0 from E
+    np.testing.assert_allclose(frobenius_error(torch.as_tensor(a), torch.as_tensor(-2 * a)), 0.0,
+                               atol=1e-15)
