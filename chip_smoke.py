@@ -15,9 +15,11 @@ non-zero):
                identical indices where the plain version's m2 − m1 > 2e-4,
                float32 to atol 1e-5 with identical indices, +inf on invalid
                queries, bf16 ratio-test agreement with float32 > 0.99; then,
-               at both shapes, the bf16 kernel's time beside the float32
-               kernel's, the plain version's, a library yardstick's (bf16
-               torch.bmm → 2 − 2·ip + bias → torch.topk) and the bound;
+               at both shapes, the bf16 kernel's time beside the plain
+               version's, a library yardstick's (bf16 torch.bmm → 2 − 2·ip +
+               bias → torch.topk) and its tensor-core bound, and the float32
+               kernel's time beside the same yardstick in float32 (TF32 off)
+               and its FP32 bound;
   4. main    — the calibrated driver on a rendered 48-frame 640×480 capture
                (focal 512, 1024 keypoints, exhaustive matching of 1128
                pairs); ATE < 0.05, median relative rotation error < 2°,
@@ -203,6 +205,7 @@ KERNEL_CASES = (("32x1024", 32, 1024, 0.0), ("32x4000", 32, 4000, 0.0),
 # another order than the plain version's; float32 sums in another order
 TOLERANCES = ((torch.bfloat16, 1e-4, 2e-4), (torch.float32, 1e-5, 1e-5))
 H100_BF16_FLOPS = 989e12   # dense, 700 W (NVIDIA's data sheet)
+H100_FP32_FLOPS = 67e12    # outside the tensor cores, 700 W (the same sheet)
 H100_HBM_BYTES = 3.35e12
 
 
@@ -269,8 +272,9 @@ def check_kernel(two_nn, reference, device="cuda"):
 
 
 def library_two_nn(desc, valid, pair_i, pair_j):
-    """Yardstick for the kernel's time, never called by the port: bf16
-    torch.bmm on the gathered copies → 2 − 2·ip + bias → torch.topk."""
+    """Yardstick for the kernels' time, never called by the port: torch.bmm
+    in the table's dtype (bf16, or float32 with TF32 off as the port sets
+    it) on the gathered copies → 2 − 2·ip + bias → torch.topk."""
     pi, pj = pair_i.long(), pair_j.long()
     ip = torch.bmm(desc[pj], desc[pi].transpose(1, 2)).float()
     bias = torch.where(valid[pi], 0.0, float("inf"))
@@ -281,23 +285,31 @@ def library_two_nn(desc, valid, pair_i, pair_j):
     return (torch.where(qvalid, m1, float("inf")), torch.where(qvalid, m2, float("inf")), idx)
 
 
-def two_nn_bound(desc, valid, pair_i, pair_j):
-    """Least time on an H100 for the bf16 function on these inputs: the
-    larger of its tensor-core operations over the bf16 peak and its bytes
-    (each frame's bf16 descriptors and validity read once, pair lists read,
-    outputs written once) over the memory rate. Returns (ms, bound_by)."""
+def two_nn_bound(desc, valid, pair_i, pair_j, peak=H100_BF16_FLOPS, elem_bytes=2):
+    """Least time on an H100 for the function on these inputs: the larger
+    of its operations over `peak` (the bf16 tensor cores by default) and
+    its bytes (each frame's descriptors of `elem_bytes` and validity read
+    once, pair lists read, outputs written once) over the memory rate.
+    Returns (ms, bound_by)."""
     P, K = pair_i.numel(), desc.shape[1]
     frames = torch.unique(torch.cat([pair_i, pair_j])).numel()
     ops = 2.0 * P * K * K * desc.shape[2]
-    nbytes = frames * K * (desc.shape[2] * 2 + 1) + 2 * P * 4 + P * K * 12
-    t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES
+    nbytes = frames * K * (desc.shape[2] * elem_bytes + 1) + 2 * P * 4 + P * K * 12
+    t_ops, t_bytes = ops / peak, nbytes / H100_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def two_nn_f32_bound(desc, valid, pair_i, pair_j):
+    """The float32 route's bound: its operations on the FP32 pipe (67
+    TFLOP/s), 4 B a descriptor element."""
+    return two_nn_bound(desc, valid, pair_i, pair_j, H100_FP32_FLOPS, 4)
+
+
 def time_kernel(two_nn, reference, args):
-    """At one shape: the bf16 kernel, the float32 FMA kernel, the plain bf16
-    version and the library yardstick, in turns (each timed twice, the
-    minimum reported), and the bound."""
+    """At one shape: the bf16 kernel, the float32 FMA kernel, the plain
+    version and the library yardstick in bf16 and in float32 (TF32 off, as
+    resolve_device("cuda") sets it), in turns (each timed twice, the
+    minimum reported), and both routes' bounds."""
     desc, valid, pi, pj = args
     desc32 = desc.float()
     # the main path checks its pair list once per match_pairs call, not per
@@ -308,15 +320,19 @@ def time_kernel(two_nn, reference, args):
         ms=lambda: two_nn(desc, valid, pi, pj, torch.bfloat16, **kw),
         fma_f32_ms=lambda: two_nn(desc32, valid, pi, pj, torch.float32, **kw),
         plain_ms=lambda: reference(desc, valid, pi, pj, torch.bfloat16),
+        plain_f32_ms=lambda: reference(desc32, valid, pi, pj, torch.float32),
         library_ms=lambda: library_two_nn(desc, valid, pi, pj),
+        library_f32_ms=lambda: library_two_nn(desc32, valid, pi, pj),
     )
-    order = ["plain_ms", "ms", "fma_f32_ms", "library_ms"]
+    order = ["plain_ms", "ms", "fma_f32_ms", "library_ms", "library_f32_ms", "plain_f32_ms"]
     runs = {k: [] for k in order}
     for k in order + order[::-1]:
-        runs[k].append(cuda_ms(fns[k], reps=10 if k == "fma_f32_ms" else 20))
+        runs[k].append(cuda_ms(fns[k], reps=20 if k in ("ms", "plain_ms", "library_ms") else 10))
     out = {k: min(v) for k, v in runs.items()}
     out["bound_ms"], out["bound_by"] = two_nn_bound(desc, valid, pi, pj)
     out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    out["f32_bound_ms"], out["f32_bound_by"] = two_nn_f32_bound(desc, valid, pi, pj)
+    out["f32_share_of_bound"] = out["f32_bound_ms"] / out["fma_f32_ms"]
     out["runs"] = runs
     return out
 
@@ -1830,27 +1846,28 @@ def main() -> int:
     launches["long_capture"] = run_long_capture_phase(two_nn)
 
     t_main = k["timing"]["32x1024"]
+    bf16_keys = {c: c for c in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                "share_of_bound")}
+    f32_keys = {"ms": "fma_f32_ms", "plain_ms": "plain_f32_ms", "library_ms": "library_f32_ms",
+                "bound_ms": "f32_bound_ms", "bound_by": "f32_bound_by",
+                "share_of_bound": "f32_share_of_bound"}
+    routes = (("two_nn", "two_nn_wgmma.cu", "main", k["max_abs_err"], bf16_keys, "bf16"),
+              ("two_nn_f32", "two_nn.cu", "ring", k["f32_max_abs_err"], f32_keys, "float32"))
     print(json.dumps({"kernels": [{
-        "name": "two_nn",
+        "name": name,
         "route": "cuda",
-        "source": "sphericalsfm_tpu_torch/csrc/two_nn_wgmma.cu",
+        "source": f"sphericalsfm_tpu_torch/csrc/{src}",
         "replaces": "sphericalsfm_tpu/ops/pallas_matching.py:32",
-        "launches": launches["main"],
-        "max_abs_err": k["max_abs_err"],
-        "ms": t_main["ms"],
-        "plain_ms": t_main["plain_ms"],
-        "bound_ms": t_main["bound_ms"],
-        "bound_by": t_main["bound_by"],
-        "library_ms": t_main["library_ms"],
-        "shape": "32x1024 bf16",
+        "launches": launches[path],
+        "launches_path": path,
+        "max_abs_err": err,
+        **{key: t_main[keys[key]] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms")},
+        "shape": f"32x1024 {dtype}",
         "launches_by_phase": launches,
-        "by_shape": {name: {key: t[key] for key in ("ms", "fma_f32_ms", "plain_ms", "library_ms",
-                                                     "bound_ms", "bound_by", "share_of_bound")}
-                     for name, t in k["timing"].items()},
-        "f32_route": {"source": "sphericalsfm_tpu_torch/csrc/two_nn.cu",
-                      "max_abs_err": k["f32_max_abs_err"],
-                      "fma_f32_ms": t_main["fma_f32_ms"]},
-    }]}), flush=True)
+        "by_shape": {shape: {key: t[col] for key, col in keys.items()}
+                     for shape, t in k["timing"].items()},
+    } for name, src, path, err, keys, dtype in routes]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

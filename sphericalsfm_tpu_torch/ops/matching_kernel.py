@@ -11,9 +11,14 @@ accumulate in float32.
 
 On CUDA tensors the wrapper launches a hand-written kernel or raises:
 bfloat16 goes to `csrc/two_nn_wgmma.cu` (tensor cores, TMA ring), float32
-to `csrc/two_nn.cu` (plain FMAs, the exact checker). Each source is built
-with nvcc on first use into its own library under `build/kernels/` and
-bound with ctypes. On CPU tensors the wrapper runs `two_nn_reference`.
+to `csrc/two_nn.cu`, the exact checker: 8 × 16 register micro-tiles of
+FP32 FMAs fed by a TMA ring, each distance one fmaf chain over k in
+ascending order, so its outputs are the first, simple float32 kernel's bit
+for bit. Both take any pair count: the bf16 kernel's grid holds 65,535
+pairs, so a larger call is split into launches of at most that many, each
+writing its rows of the outputs. Each source is built with nvcc on first
+use into its own library under `build/kernels/` and bound with ctypes. On
+CPU tensors the wrapper runs `two_nn_reference`.
 `two_nearest_neighbors.launches` counts kernel launches and
 `two_nearest_neighbors.route_launches` splits them by kernel.
 """
@@ -39,9 +44,11 @@ _KERNELS = {
     "wgmma_bf16": ("two_nn_wgmma.cu", "two_nn_wgmma_launch",
                    [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
     "fma_f32": ("two_nn.cu", "two_nn_f32_launch",
-                [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
+                [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
 }
 _ROUTE = {torch.bfloat16: "wgmma_bf16", torch.float32: "fma_f32"}
+_BF16_MAX_PAIRS = 65535        # the bf16 kernel's grid: pairs on gridDim.y
+_F32_MAX_BLOCKS = 2 ** 31 - 1  # the f32 kernel's grid: pairs × query tiles on gridDim.x
 
 _fns: dict = {}
 
@@ -99,6 +106,16 @@ def _load(route: str):
             fn.restype = ctypes.c_int
             _fns[name] = fn
     return _fns[route]
+
+
+def launch_slices(route: str, P: int, K: int) -> list:
+    """[(start, stop), ...]: the pair ranges of the launches that cover P
+    pairs of K keypoints on `route`, each within its kernel's grid."""
+    if route == "wgmma_bf16":
+        step = _BF16_MAX_PAIRS
+    else:
+        step = _F32_MAX_BLOCKS // -(-K // 128)
+    return [(s, min(P, s + step)) for s in range(0, P, step)]
 
 
 def two_nn_reference(desc, valid, pair_i, pair_j, compute_dtype=torch.bfloat16):
@@ -165,17 +182,17 @@ def two_nearest_neighbors(desc: torch.Tensor, valid: torch.Tensor,
     if P == 0:
         return m1, m2, idx
     route = _ROUTE[compute_dtype]
+    fn = _load(route)
+    if d.data_ptr() % 16:  # TMA reads the table from a 16-byte aligned address
+        d = d.clone()
     stream = torch.cuda.current_stream(desc.device).cuda_stream
-    if route == "wgmma_bf16":
-        err = _load(route)(d.data_ptr(), F, v.data_ptr(), pi.data_ptr(), pj.data_ptr(), P, K,
-                           D, m1.data_ptr(), m2.data_ptr(), idx.data_ptr(), stream)
-    else:
-        err = _load(route)(d.data_ptr(), v.data_ptr(), pi.data_ptr(), pj.data_ptr(), P, K, D,
-                           m1.data_ptr(), m2.data_ptr(), idx.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"two_nn {route} kernel launch failed: cudaError {err}")
-    two_nearest_neighbors.launches += 1
-    two_nearest_neighbors.route_launches[route] += 1
+    for s, e in launch_slices(route, P, K):
+        err = fn(d.data_ptr(), F, v.data_ptr(), pi[s:e].data_ptr(), pj[s:e].data_ptr(), e - s,
+                 K, D, m1[s:e].data_ptr(), m2[s:e].data_ptr(), idx[s:e].data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"two_nn {route} kernel launch failed: cudaError {err}")
+        two_nearest_neighbors.launches += 1
+        two_nearest_neighbors.route_launches[route] += 1
     return m1, m2, idx
 
 

@@ -1,6 +1,8 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions, on the card: the bf16 two-NN kernel (tensor cores) and the
-float32 one (FMAs). Every test here needs an NVIDIA GPU (marker
+float32 one (FMAs), at K from 1 to 4000 (one query tile, its edges, many
+tiles), on ties and empty rows, on repeats (bit for bit) and past the bf16
+grid's 65,535 pairs. Every test here needs an NVIDIA GPU (marker
 `cuda`) and skips without one. The module imports no JAX, so on the GPU
 machine it runs without the repository's conftest:
 
@@ -35,7 +37,7 @@ def _table(seed, pairs, K, drop=0.05):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [1000, 1024, 77])
+@pytest.mark.parametrize("K", [1, 77, 127, 129, 1000, 1024, 4000])
 def test_two_nn_kernel_matches_plain_version(cuda, K):
     desc, valid, pi, pj = (t.to(cuda) for t in _table(K, 4, K))
     before = two_nearest_neighbors.launches
@@ -62,6 +64,39 @@ def test_two_nn_kernel_ties_and_empty_rows(cuda):
                                        torch.float32)
     assert int(nn[0, 0]) == 3 and float(m1[0, 0]) == float(m2[0, 0])
     assert (nn[1] == -1).all() and torch.isinf(m1[1]).all()
+
+
+@pytest.mark.cuda
+def test_two_nn_kernel_repeats_bit_for_bit(cuda):
+    desc, valid, pi, pj = (t.to(cuda) for t in _table(6, 8, 1000))
+    a = two_nearest_neighbors(desc, valid, pi, pj, torch.float32)
+    b = two_nearest_neighbors(desc, valid, pi, pj, torch.float32)
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,launches", [(torch.float32, 1e-5, 1),
+                                                 (torch.bfloat16, 1e-4, 2)])
+def test_two_nn_takes_any_pair_count(cuda, dtype, atol, launches):
+    """70,000 pairs over two frames: past the 65,535 pairs of the bf16
+    kernel's grid, which the wrapper splits into two launches."""
+    desc, valid, _, _ = (t.to(cuda) for t in _table(4, 1, 32))
+    pi = torch.arange(70_000, device=cuda) % 2
+    pj = 1 - pi
+    route = "fma_f32" if dtype == torch.float32 else "wgmma_bf16"
+    before = two_nearest_neighbors.route_launches[route]
+    m1, m2, nn = two_nearest_neighbors(desc, valid, pi, pj, dtype)
+    torch.cuda.synchronize()
+    assert two_nearest_neighbors.route_launches[route] == before + launches
+    r1, r2, rn = two_nn_reference(desc, valid, pi, pj, dtype)
+    vq = valid[pj]
+    torch.testing.assert_close(m1[vq], r1[vq], atol=atol, rtol=0)
+    torch.testing.assert_close(m2[vq], r2[vq], atol=atol, rtol=0)
+    sep = vq & (r2 - r1 > 2 * atol)
+    assert sep.sum() > 0.5 * vq.sum()
+    assert torch.equal(nn[sep], rn[sep])
+    assert torch.isinf(m1[~vq]).all() and torch.isinf(m2[~vq]).all()
 
 
 @pytest.mark.cuda

@@ -13,6 +13,8 @@
   reference's m2 − m1 > 2e-4.
 * Ratio test and `nn_to_index_pairs` compaction: identical tables.
 * `match_pairs` over a ragged pair list: identical tables for any chunk.
+* The wrapper's launch slices cover any pair count within each kernel's
+  grid (the launches themselves run on the card).
 The CUDA kernel's own tests (against this plain version, on the card) are
 in test_torch_cuda_kernels.py, which imports no JAX so it runs on the GPU
 machine.
@@ -27,7 +29,7 @@ from sphericalsfm_tpu.ops.matching import nn_to_index_pairs as jnn_to_index_pair
 from sphericalsfm_tpu.ops.pallas_matching import two_nearest_neighbors_batched
 from sphericalsfm_tpu_torch.config import FrontendConfig
 from sphericalsfm_tpu_torch.ops.matching import match_pairs_compact, nn_to_index_pairs
-from sphericalsfm_tpu_torch.ops.matching_kernel import two_nearest_neighbors
+from sphericalsfm_tpu_torch.ops.matching_kernel import launch_slices, two_nearest_neighbors
 from sphericalsfm_tpu_torch.pipeline.frontend import FrameFeatures, match_pairs, window_pairs
 
 torch.set_num_threads(1)
@@ -195,3 +197,15 @@ def test_match_pairs_rejects_pairs_out_of_range():
     feats = _capture_features()
     with pytest.raises(ValueError):
         match_pairs(feats, np.array([0, 1]), np.array([2, 9]), device="cpu")
+
+
+@pytest.mark.parametrize("route,P,K,launches", [
+    ("wgmma_bf16", 70_000, 32, 2), ("wgmma_bf16", 65_535, 4000, 1),
+    ("wgmma_bf16", 131_071, 77, 3), ("fma_f32", 70_000, 32, 1), ("fma_f32", 2 ** 26, 4000, 2)])
+def test_launch_slices_cover_any_pair_count(route, P, K, launches):
+    slices = launch_slices(route, P, K)
+    assert len(slices) == launches
+    assert slices[0][0] == 0 and slices[-1][1] == P
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    for s, e in slices:   # bf16: pairs on gridDim.y; f32: pairs × query tiles on gridDim.x
+        assert 0 < e - s <= 65_535 if route == "wgmma_bf16" else (e - s) * -(-K // 128) < 2 ** 31
