@@ -64,15 +64,18 @@ non-zero):
                env-var launch recipe), on a 2-shard mesh, dense and PCG:
                bit-equal to the same run in this process without a group,
                the PCG within 1e-6 (or JAX's 1e-18 floor) of the dense.
-  6. uncalibrated — three sequences of the evaluation suite
-               (scripts/eval_suite.py) at their full 640×480 size through
-               the uncalibrated driver with windows matching, one line
-               each: base_f560_120, wide_f280_100 (focal 2× below the
-               (W+H)/2 guess) and out30_f560_120 (30% injected outlier
-               matches). Each must reach AUC@30 ≥ 98.8 against the
+  6. uncalibrated — four sequences of the evaluation suite
+               (sphericalsfm_tpu_torch/eval/suite.py, the port's counterpart
+               of scripts/eval_suite.py) at their full 640×480 size through
+               suite.run_sequence: the uncalibrated driver with windows
+               matching, one line each: base_f560_120, wide_f280_100 (focal
+               2× below the (W+H)/2 guess), out30_f560_120 (30% injected
+               outlier matches) and inward_out20_f450_100 (inward-facing,
+               20% outliers). Each must reach AUC@30 ≥ 98.8 against the
                rendered ground truth, relative focal error < 1%,
                ATE < 0.05, every output file, and one matcher launch per
-               32-pair chunk of its windows pairs.
+               32-pair chunk of its windows pairs. All 14 sequences run
+               through scripts/eval_suite_torch.py.
   7. modes   — the uncalibrated driver's other modes on a 24-frame
                320×240 render (true focal 260, guess 280): five-point
                pairwise and six-point focal within 15%, and a run from a
@@ -555,131 +558,56 @@ def run_match_k4000(two_nn, reference, gray, color, device="cuda", K=4000):
     return launches
 
 
-EVAL_W, EVAL_H = 640, 480
-EVAL_SEQUENCES = [  # scripts/eval_suite.py SEQUENCES, three of fourteen
-    dict(name="base_f560_120", focal=560.0, frames=120, seed=7),
-    dict(name="wide_f280_100", focal=280.0, frames=100, seed=11),
-    dict(name="out30_f560_120", focal=560.0, frames=120, seed=31, outliers=0.3),
-]
+# sphericalsfm_tpu_torch.eval.suite SEQUENCES, four of fourteen
+UNCALIB_SEQUENCES = ("base_f560_120", "wide_f280_100", "out30_f560_120",
+                     "inward_out20_f450_100")
 UNCALIB_OUTPUTS = ("calib.txt", "focal_costs.txt", "summary.json", "stages.jsonl",
                    "poses.txt", "points.obj", "cameras.obj") + tuple(
     f"sparse/{d}/{f}" for d in ("pre-spherical-ba", "pre-general-ba", "final", "model")
     for f in ("cameras.txt", "images.txt", "points3D.txt"))
 
 
-def eval_suite_config(width: int):
-    """scripts/eval_suite.py's per-sequence configuration."""
-    from sphericalsfm_tpu_torch.config import PipelineConfig
-
-    cfg = PipelineConfig()
-    cfg.general_ba = True
-    cfg.frontend.max_keypoints = 1024 if width >= 640 else 512
-    cfg.frontend.max_matches_per_pair = 512 if width >= 640 else 384
-    cfg.ransac.num_hypotheses = 512 if width >= 640 else 384
-    cfg.ransac.min_num_inliers = 30
-    cfg.focal.num_trials = 512
-    cfg.ba.max_iters = 100
-    return cfg
-
-
-def write_gt_model(gt_dir, cam_r, cam_t, focal, w, h):
-    """The rendered ground truth as a COLMAP text model, as the evaluation
-    suite writes it."""
-    from sphericalsfm_tpu_torch.geometry.so3 import np_so3_exp
-    from sphericalsfm_tpu_torch.io.colmap import rotmat_to_quat
-
-    os.makedirs(gt_dir, exist_ok=True)
-    Rs = np_so3_exp(np.asarray(cam_r, np.float64))
-    with open(os.path.join(gt_dir, "cameras.txt"), "w") as f:
-        f.write(f"1 SIMPLE_PINHOLE {w} {h} {focal} {w / 2} {h / 2}\n")
-    with open(os.path.join(gt_dir, "images.txt"), "w") as f:
-        for i in range(len(Rs)):
-            q = rotmat_to_quat(Rs[i])
-            t = cam_t[i]
-            f.write(f"{i + 1} {q[0]} {q[1]} {q[2]} {q[3]} {t[0]} {t[1]} {t[2]} 1 "
-                    f"{i:06d}.png\n\n")
-    open(os.path.join(gt_dir, "points3D.txt"), "w").close()
-
-
-def run_eval_sequence(spec, two_nn, out_root, device="cuda"):
-    """One evaluation-suite sequence through the port: render, frontend,
-    injected outliers, run_uncalibrated, evaluator. Returns (report,
-    failures)."""
-    from sphericalsfm_tpu_torch.eval.metrics import ate
-    from sphericalsfm_tpu_torch.eval.relpose_eval import evaluate_models
-    from sphericalsfm_tpu_torch.eval.render import render_capture
-    from sphericalsfm_tpu_torch.eval.synthetic import corrupt_match_table
-    from sphericalsfm_tpu_torch.geometry.so3 import np_so3_exp
-    from sphericalsfm_tpu_torch.pipeline.driver import (
-        StageLogger, run_frontend, run_uncalibrated,
-    )
-    from sphericalsfm_tpu_torch.pipeline.frontend import window_pairs
-
-    w, h = EVAL_W, EVAL_H
-    cam_r, cam_t, gray, color = render_capture(
-        num_frames=spec["frames"], arc=1.0, focal=spec["focal"], width=w, height=h,
-        seed=spec["seed"], n_waves=600, wave_freq=25.0 * w / 320.0, device=device)
-    out = os.path.join(out_root, spec["name"])
-    os.makedirs(out, exist_ok=True)
-    cfg = eval_suite_config(w)
-    cfg.frontend.matching = "windows"
-    pairs = len(window_pairs(spec["frames"], cfg.frontend.adjacent_window,
-                             cfg.graph.num_frames_begin, cfg.graph.num_frames_end)[0])
-
-    two_nn.launches = 0
-    t0 = time.perf_counter()
-    log = StageLogger(out)
-    log.sync = lambda: sync(device)
-    fr = run_frontend(None, cfg, log, gray, color, device=device)
-    if spec.get("outliers", 0.0) > 0:
-        fr = fr._replace(idx1=corrupt_match_table(fr.idx1, fr.mmask, fr.pair_j,
-                                                  fr.feats.counts, spec["outliers"],
-                                                  seed=spec["seed"]))
-    m, focal = run_uncalibrated(None, out, cfg, frontend=fr, image_size=(w, h),
-                                device=device)
-    sync(device)
-    wall = time.perf_counter() - t0
-    launches = two_nn.launches
-
-    write_gt_model(os.path.join(out, "gt"), cam_r, cam_t, spec["focal"], w, h)
-    rep = evaluate_models(os.path.join(out, "sparse", "final"), os.path.join(out, "gt"))
-    Rg = np_so3_exp(cam_r)
-    rep.update(
-        sequence=spec["name"], frames=spec["frames"], outlier_frac=spec.get("outliers", 0.0),
-        focal_true=spec["focal"], focal_est=focal,
-        ate=float(ate(m.centers(), -np.einsum("cji,cj->ci", Rg, cam_t))),
-        wall_s=round(wall, 3), pairs=pairs, launches=launches,
-        expected_launches=math.ceil(pairs / CHUNK),
-        stage_s={s["stage"]: s["seconds"] for s in map(json.loads, open(
-            os.path.join(out, "stages.jsonl")))})
+def sequence_failures(rep, spec, out):
+    """The smoke's gates on one evaluation-suite report."""
     missing = [f for f in UNCALIB_OUTPUTS if not os.path.exists(os.path.join(out, f))]
     failures = []
     if not rep["AUC@30"] >= 98.8:
         failures.append(f"AUC@30 {rep['AUC@30']} < 98.8")
-    if not abs(focal - spec["focal"]) / spec["focal"] < 0.01:
-        failures.append(f"focal {focal} not within 1% of {spec['focal']}")
+    if not abs(rep["focal_est"] - spec["focal"]) / spec["focal"] < 0.01:
+        failures.append(f"focal {rep['focal_est']} not within 1% of {spec['focal']}")
     if not rep["ate"] < 0.05:
         failures.append(f"ATE {rep['ate']} >= 0.05")
     if missing:
         failures.append(f"outputs missing: {missing}")
-    if launches != rep["expected_launches"]:
-        failures.append(f"matcher launched {launches} times, expected "
+    if rep["launches"] != rep["expected_launches"]:
+        failures.append(f"matcher launched {rep['launches']} times, expected "
                         f"{rep['expected_launches']}")
-    return rep, failures
+    return failures
 
 
 def run_uncalibrated_phase(two_nn, device="cuda"):
-    """The evaluation-suite sequences; raises after all of them ran if any
-    missed a bound. Returns the phase's matcher launches."""
+    """Four evaluation-suite sequences through suite.run_sequence (render,
+    frontend, injected outliers, run_uncalibrated, evaluator), inward_out20
+    the inward mode's; raises after all of them ran if any missed a bound.
+    Returns the phase's matcher launches."""
+    from sphericalsfm_tpu_torch.eval import suite
+    from sphericalsfm_tpu_torch.pipeline.frontend import window_pairs
+
+    specs = {s["name"]: s for s in suite.SEQUENCES}
     failed = {}
-    launches = 0
+    reset_counts(two_nn)
     with tempfile.TemporaryDirectory() as out_root:
-        for spec in EVAL_SEQUENCES:
-            rep, failures = run_eval_sequence(spec, two_nn, out_root, device)
-            launches += rep["launches"]
+        for name in UNCALIB_SEQUENCES:
+            cfg = suite.sequence_config(specs[name])
+            pairs = len(window_pairs(specs[name]["frames"], cfg.frontend.adjacent_window,
+                                     cfg.graph.num_frames_begin, cfg.graph.num_frames_end)[0])
+            rep = suite.run_sequence(specs[name], out_root, device)
+            rep["expected_launches"] = math.ceil(pairs / CHUNK)
+            failures = sequence_failures(rep, specs[name], os.path.join(out_root, name))
             phase("uncalibrated", **rep, failures=failures)
             if failures:
-                failed[spec["name"]] = failures
+                failed[name] = failures
+    launches = two_nn.launches
     if failed:
         raise AssertionError(f"uncalibrated sequences failed: {failed}")
     return launches
@@ -1663,6 +1591,7 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
     with cfg.profile_dir. Then the joint rotations + focal graph on the
     run's rotation graph, with its measured relative rotations and with the
     ground truth's, by the PCG and the dense solve."""
+    from sphericalsfm_tpu_torch.eval import suite
     from sphericalsfm_tpu_torch.eval.metrics import ate, rotation_error_deg
     from sphericalsfm_tpu_torch.eval.render import render_capture
     from sphericalsfm_tpu_torch.geometry.pose import Intrinsics
@@ -1678,8 +1607,7 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
         num_frames=F, arc=1.0, focal=focal, width=W, height=H, seed=spec["seed"], n_waves=600,
         wave_freq=25.0 * W / 320.0, device=device)
     render_s = time.perf_counter() - t0
-    cfg = eval_suite_config(W)
-    cfg.frontend.matching = "windows"
+    cfg = suite.sequence_config(dict(frames=F, width=W))
     pairs = len(window_pairs(F, cfg.frontend.adjacent_window, cfg.graph.num_frames_begin,
                              cfg.graph.num_frames_end)[0])
     chunks = math.ceil(pairs / CHUNK)

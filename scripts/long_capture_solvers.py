@@ -31,6 +31,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 from sphericalsfm_tpu_torch.device import resolve_device  # noqa: E402
+from sphericalsfm_tpu_torch.eval import suite  # noqa: E402
 from sphericalsfm_tpu_torch.eval.metrics import ate, rotation_error_deg  # noqa: E402
 from sphericalsfm_tpu_torch.eval.render import render_capture  # noqa: E402
 from sphericalsfm_tpu_torch.geometry.pose import Intrinsics  # noqa: E402
@@ -89,8 +90,7 @@ def main():
     cam_r, cam_t, gray, color = render_capture(
         num_frames=F, arc=1.0, focal=spec["focal"], width=W, height=H, seed=spec["seed"],
         n_waves=600, wave_freq=25.0 * W / 320.0, device="cuda")
-    cfg = cs.eval_suite_config(W)
-    cfg.frontend.matching = "windows"
+    cfg = suite.sequence_config(dict(frames=F, width=W))
     log = driver.StageLogger(None, verbose=False)
     log.sync = torch.cuda.synchronize
     fr = driver.run_frontend(None, cfg, log, gray, color, device="cuda")

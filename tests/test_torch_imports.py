@@ -24,7 +24,8 @@ def _imported_roots(tree):
 
 
 # files outside the package that the card's machine runs
-CARD_FILES = [PKG.parent / "chip_smoke.py", PKG.parent / "tests" / "_torch_multihost_worker.py"]
+CARD_FILES = [PKG.parent / "chip_smoke.py", PKG.parent / "tests" / "_torch_multihost_worker.py",
+              PKG.parent / "scripts" / "eval_suite_torch.py"]
 
 
 def test_port_imports_no_jax():
