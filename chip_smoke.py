@@ -91,7 +91,19 @@ non-zero):
                eigenvalue eig finds matched to 1e-8; both timed, and the
                parts and the eager launch cost), 7- and 8-point exact recovery, the solver-bench verb
                at 1000 trials, and the four comparison CSVs at the JAX
-               defaults (no figures: no matplotlib there).
+               defaults (no figures: no matplotlib there). Its RANSAC and
+               five-point workloads and scoring are the round bench's
+               (sphericalsfm_tpu_torch/eval/bench.py), here in float64.
+  7b. bench  — the round bench's rows that no other phase holds (eval/bench.py,
+               as bench_torch.py runs them): BA on the 64-camera bench scene
+               (float32; cost after 20 iterations within 1e-3 of JAX's
+               6521.95, converged in ≤ 12 iterations), the six-point shared
+               focal solver (512 general-motion problems, float32; median
+               focal error ≤ JAX's 7.419% + 1), detection ms per frame (the
+               marginal of 8 640×480 frames over 2; positive or null) and the
+               matcher at 8 and 16 pairs × K = 4096 (bf16 against its plain
+               version to atol 1e-4, bf16/f32 ratio-test agreement ≥ 0.99);
+               one line per row with its gates, and both kernels launched.
   8. flow    — Horn–Schunck flow at 640×480 (4 levels × 60 iterations):
                the shift-recovery case of tests/test_panorama.py (median u
                within 0.35 px of 3, median |v| < 0.3), and one keyframe
@@ -722,19 +734,6 @@ def run_modes_phase(two_nn, device="cuda", F=24, W=320, H=240, focal=260.0):
     return launches
 
 
-BENCH_FOCAL = 600.0
-BENCH_RANSAC = dict(pairs=64, corr=256, rotation_deg=2.0, noise_px=1.0, hypotheses=512)
-
-
-def host_rot_err_deg(r, R_gt):
-    """Rotation error in degrees on the host in float64 (bench.py's
-    rot_err_deg_np: sub-0.04° angles need float64 acos)."""
-    from sphericalsfm_tpu_torch.geometry.so3 import np_so3_exp
-
-    Rd = np.einsum("...ij,...ik->...jk", np_so3_exp(r.cpu().numpy()), R_gt.cpu().numpy())
-    return np.degrees(np.arccos(np.clip((np.trace(Rd, axis1=-2, axis2=-1) - 1) / 2, -1, 1)))
-
-
 def timed_s(fn, device="cuda", reps=3):
     """Warm call, then the host-clock mean of `reps` synchronized calls."""
     out = fn()
@@ -779,62 +778,41 @@ def run_solvers_phase(device="cuda"):
     import io
 
     from sphericalsfm_tpu_torch import cli
+    from sphericalsfm_tpu_torch.eval import bench
     from sphericalsfm_tpu_torch.eval import experiments as ex
     from sphericalsfm_tpu_torch.eval.metrics import frobenius_error
-    from sphericalsfm_tpu_torch.eval.synthetic import make_random_problems
     from sphericalsfm_tpu_torch.ops.linalg import eig_real_batched
-    from sphericalsfm_tpu_torch.ransac.spherical import (
-        sampson_error, spherical_ransac, spherical_ransac_adaptive,
-    )
     from sphericalsfm_tpu_torch.solvers.eight_point import solve_essential_8pt
-    from sphericalsfm_tpu_torch.solvers.five_point import (
-        cheirality_best, decompose_essential, solve_essential_5pt,
-    )
     from sphericalsfm_tpu_torch.solvers.seven_point import solve_essential_7pt
 
     failures, info = [], {}
-    # (1) RANSAC, 64 pairs × 256 correspondences, 2°, 1 px, 512 hypotheses
-    b = BENCH_RANSAC
-    prob = make_random_problems(torch.Generator().manual_seed(0), b["pairs"], b["corr"],
-                                rotation_deg=b["rotation_deg"],
-                                point_noise=b["noise_px"] / BENCH_FOCAL, device=device)
-    sq = (2.0 / BENCH_FOCAL) ** 2
-    engines = {
-        "static": lambda g: spherical_ransac(g, prob.u, prob.v, prob.valid, sq,
-                                             num_hypotheses=b["hypotheses"]),
-        "adaptive": lambda g: spherical_ransac_adaptive(g, prob.u, prob.v, prob.valid, sq,
-                                                        round_size=128,
-                                                        max_rounds=b["hypotheses"] // 128),
-    }
+    # (1) RANSAC: the round bench's workload (64 pairs × 256 correspondences,
+    # 2°, 1 px, 512 hypotheses) in float64, the drivers' dtype
+    prob = bench.ransac_inputs(device, torch.float64)
     ransac = {}
-    for name, run in engines.items():
-        res, dt = timed_s(lambda: run(torch.Generator(device=device).manual_seed(1)), device)
-        err = host_rot_err_deg(res.r, prob.R)
-        ransac[name] = dict(median_rot_deg=float(np.median(err)), pairs_per_s=b["pairs"] / dt,
+    for name, run in bench.ransac_engines(prob).items():
+        res, dt = timed_s(lambda: run(torch.Generator(device=device).manual_seed(
+            bench.RANSAC_SAMPLE_SEED)), device)
+        err = bench.axis_angle_error_deg(res.r.cpu().numpy(), prob.R.cpu().numpy())
+        ransac[name] = dict(median_rot_deg=float(np.median(err)), pairs_per_s=bench.PAIRS / dt,
                             seconds=dt, mean_inliers=float(res.num_inliers.double().mean()))
         if not ransac[name]["median_rot_deg"] < 0.02:
             failures.append(f"{name} RANSAC median {ransac[name]['median_rot_deg']} >= 0.02 deg")
-    info["ransac"] = dict(workload=b, **ransac)
+    info["ransac"] = dict(workload=dict(pairs=bench.PAIRS, corr=bench.CORR,
+                                        rotation_deg=bench.ROTATION_DEG,
+                                        noise_px=bench.NOISE_PX, hypotheses=bench.HYPOTHESES),
+                          **ransac)
 
-    # (2) five-point at 512 × 8, Sampson-disambiguated with cheirality
-    prob5 = make_random_problems(torch.Generator().manual_seed(3), 512, 8, rotation_deg=2.0,
-                                 point_noise=1.0 / BENCH_FOCAL, device=device)
+    # (2) five-point: the round bench's 512 × 8 problems in float64,
+    # Sampson-disambiguated with cheirality
+    prob5 = bench.five_point_inputs(device, torch.float64)
     five = {}
     for method in ("qr", "eig"):
-        (Es, valid), dt = timed_s(lambda: solve_essential_5pt(prob5.u[:, :5], prob5.v[:, :5],
-                                                              method=method), device,
-                                  reps=3 if method == "qr" else 1)
-        samp = sampson_error(Es, prob5.u[:, None], prob5.v[:, None]).sum(-1)
-        total = torch.where(valid & torch.isfinite(samp), samp, torch.full_like(samp, math.inf))
-        E_best = torch.gather(Es, 1, torch.argmin(total, -1)[:, None, None, None].expand(
-            -1, 1, 3, 3))[:, 0]
-        R5, _, _ = cheirality_best(*decompose_essential(E_best), prob5.u, prob5.v,
-                                   torch.ones(prob5.u.shape[:2], dtype=torch.bool,
-                                              device=device))
-        Rd = np.einsum("...ij,...ik->...jk", R5.cpu().numpy(), prob5.R.cpu().numpy())
-        err = np.degrees(np.arccos(np.clip((np.trace(Rd, axis1=-2, axis2=-1) - 1) / 2, -1, 1)))
-        five[method] = dict(median_rot_deg=float(np.median(err)), solves_per_s=512 / dt,
-                            seconds=dt, valid_per_problem=float(valid.sum(-1).double().mean()))
+        err, dt, per_problem = bench.five_point_errors(prob5, method,
+                                                       reps=3 if method == "qr" else 1)
+        five[method] = dict(median_rot_deg=float(np.median(err)),
+                            solves_per_s=bench.MINIMAL_BATCH / dt, seconds=dt,
+                            valid_per_problem=per_problem)
     if not five["qr"]["median_rot_deg"] < 0.5:
         failures.append(f"five-point qr median {five['qr']['median_rot_deg']} >= 0.5 deg")
     info["five_point"] = five
@@ -922,6 +900,34 @@ def run_solvers_phase(device="cuda"):
     phase("solvers", **info, failures=failures)
     if failures:
         raise AssertionError(f"solvers failed: {failures}")
+
+
+BENCH_ROWS = ("ba", "six_point", "detection", "matcher")
+
+
+def run_bench_phase(two_nn, device="cuda"):
+    """The round bench's rows that no other phase holds
+    (sphericalsfm_tpu_torch/eval/bench.py, the rows of bench_torch.py): BA on
+    the 64-camera bench scene, the shared-focal six-point solver, detection
+    ms per frame and the matcher at K = 4096. One line per row with its
+    gates beside JAX's values; any gate missed fails the phase. Returns the
+    phase's bf16 and float32 matcher launches."""
+    from sphericalsfm_tpu_torch.eval import bench
+
+    reset_counts(two_nn)
+    rows = {}
+    for name in BENCH_ROWS:
+        t0 = time.perf_counter()
+        rows[name] = bench.ROWS[name](device)
+        phase("bench", row=name, seconds=round(time.perf_counter() - t0, 3), **rows[name],
+              gates=bench.row_gates(name, rows[name]))
+    failures = bench.gate_failures(rows)
+    routes = dict(two_nn.route_launches)
+    if not routes["wgmma_bf16"] or not routes["fma_f32"]:
+        failures.append(f"matcher row launched {routes}, expected both kernels")
+    if failures:
+        raise AssertionError(f"bench failed: {failures}")
+    return routes["wgmma_bf16"], routes["fma_f32"]
 
 
 def shifted_pair(h: int, w: int, seed: int = 1):
@@ -1142,9 +1148,7 @@ def run_circle_views_phase(poses_path, workflow, out, device="cuda", num_views=6
                              f"least non-zero share {min(nonzero or [0.0])}")
 
 
-BA_SCALE = dict(C=2000, W=520, P=131072)   # scripts/bench_ba_scale.py's defaults
-BA_BENCH = dict(solve_dtype_name="float32", pcg_rtol=1e-2, pcg_iters=25, ftol=1e-12)
-BA_ITERS = 15
+BA_ITERS = 15   # the round bench times 10 (eval/bench.py BA_SCALE_ITERS)
 
 
 def rms_px(cost, K):
@@ -1185,17 +1189,21 @@ def matvec_bound(prob, K, sd_bytes=4):
     return 1e3 * nbytes / H100_HBM_BYTES, nbytes
 
 
-def run_ba_scale_phase(device="cuda", sizes=BA_SCALE):
+def run_ba_scale_phase(device="cuda", sizes=None):
     """The JAX package's large-scale BA (scripts/bench_ba_scale.py) at full
     width: (a) "auto" with the bench's float32 PCG settings, cold and warm;
     (b) the exact dense solve, the problem upcast to float64; (c) (a) with
     the coarse level;
     (d) the checkpointed run stopped after one 5-iteration segment and
     resumed, against an uninterrupted segmented run. Then CUDA-event times
-    of one assembly, one matvec and one preconditioner apply."""
+    of one assembly, one matvec and one preconditioner apply. The scene's
+    sizes and the PCG settings are the round bench's (eval/bench.py)."""
+    from sphericalsfm_tpu_torch.eval import bench
     from sphericalsfm_tpu_torch.eval.synthetic import make_ring_scene
     from sphericalsfm_tpu_torch.optim import ba
 
+    sizes = sizes or bench.BA_SCALE
+    solve = bench.BA_SCALE_SOLVE
     t0 = time.perf_counter()
     p = make_ring_scene(**sizes, device=device)
     scene_s = time.perf_counter() - t0
@@ -1207,12 +1215,12 @@ def run_ba_scale_phase(device="cuda", sizes=BA_SCALE):
 
     ba.bundle_adjust.solves.update(dense=0, pcg=0)
     res_a, cold_a, peak_a = timed_ba(ba, p, device, camera_solver="auto", max_iters=BA_ITERS,
-                                     **BA_BENCH)
+                                     **solve)
     auto_solves = dict(ba.bundle_adjust.solves)
     res_aw, warm_a, _ = timed_ba(ba, p, device, camera_solver="auto", max_iters=BA_ITERS,
-                                 **BA_BENCH)
+                                 **solve)
     res_c, wall_c, peak_c = timed_ba(ba, p, device, camera_solver="auto", max_iters=BA_ITERS,
-                                     pcg_coarse=16, **BA_BENCH)
+                                     pcg_coarse=16, **solve)
     # the exact reference: the same problem upcast, assembled and solved in
     # float64 (a float32 assembly stalls the exact solve at small λ)
     p64 = p._replace(**{k: getattr(p, k).double() for k in (
@@ -1221,7 +1229,7 @@ def run_ba_scale_phase(device="cuda", sizes=BA_SCALE):
                                      max_iters=BA_ITERS, solve_dtype_name="float64", ftol=1e-12)
     del p64
     with tempfile.TemporaryDirectory() as d:
-        kw = dict(camera_solver="auto", segment=5, **BA_BENCH)
+        kw = dict(camera_solver="auto", segment=5, **solve)
         full = ba.bundle_adjust_checkpointed(p, os.path.join(d, "full.npz"), max_iters=BA_ITERS,
                                              **kw)
         part = ba.bundle_adjust_checkpointed(p, os.path.join(d, "ck.npz"), max_iters=5, **kw)
@@ -1288,7 +1296,7 @@ def equal_tables(a, b):
 
 
 def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SHARDS,
-                   ba_sizes=BA_SCALE):
+                   ba_sizes=None):
     """The sharded stages on a mesh of `shards` logical shards of one card,
     each beside the single-device run on the same card (times labelled
     "logical shards on one card": not a multi-GPU speed): detection and
@@ -1301,6 +1309,7 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
     import copy
 
     from sphericalsfm_tpu_torch.device import generator
+    from sphericalsfm_tpu_torch.eval import bench
     from sphericalsfm_tpu_torch.eval.synthetic import make_ring_scene
     from sphericalsfm_tpu_torch.geometry.pose import Intrinsics
     from sphericalsfm_tpu_torch.ops.matching import match_pairs_compact
@@ -1432,8 +1441,8 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
 
     # ba_scale through distributed_bundle_adjust on the mesh, beside the
     # single-device PCG run in this process
-    p = make_ring_scene(**ba_sizes, device=device)
-    kw = dict(camera_solver="auto", max_iters=BA_ITERS, **BA_BENCH)
+    p = make_ring_scene(**(ba_sizes or bench.BA_SCALE), device=device)
+    kw = dict(camera_solver="auto", max_iters=BA_ITERS, **bench.BA_SCALE_SOLVE)
     ba.bundle_adjust(p, **kw)                       # warm the single-device path
     r_single, secs["ba_scale_single_s"] = timed(lambda: ba.bundle_adjust(p, **kw), dev)
     r_a, secs["ba_scale_mesh_cold_s"] = timed(lambda: distributed_bundle_adjust(mesh, p, **kw),
@@ -1762,6 +1771,7 @@ def main() -> int:
     launches["uncalibrated"] = run_uncalibrated_phase(two_nn)
     launches["modes"] = run_modes_phase(two_nn)
     run_solvers_phase()
+    launches["bench"], launches["bench_f32"] = run_bench_phase(two_nn)
     with tempfile.TemporaryDirectory() as tmp:
         case5 = config5_case(tmp)
         flows = run_flow_phase(case5["pair"][0])

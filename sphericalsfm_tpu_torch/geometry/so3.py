@@ -33,8 +33,11 @@ def skew(v: torch.Tensor) -> torch.Tensor:
 
 def so3_exp(r: torch.Tensor) -> torch.Tensor:
     """Rodrigues formula, r: (..., 3) -> (..., 3, 3), with Taylor limits of
-    sinθ/θ and (1−cosθ)/θ² near 0. K² is the closed form r rᵀ − θ² I."""
-    theta2 = torch.sum(r * r, dim=-1)
+    sinθ/θ and (1−cosθ)/θ² near 0. K² is the closed form r rᵀ − θ² I.
+    θ² keeps a trailing axis: under `torch.func.jacfwd` of one (3,) vector
+    a 0-d float32 θ² times a Python float gets a float64 tangent in some
+    PyTorch builds, which the matrix products then reject."""
+    theta2 = torch.sum(r * r, dim=-1, keepdim=True)[..., None]      # (..., 1, 1)
     theta = torch.sqrt(theta2)
     small = theta2 < 1e-16
     ts = torch.where(small, torch.ones_like(theta), theta)
@@ -42,8 +45,8 @@ def so3_exp(r: torch.Tensor) -> torch.Tensor:
     b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(ts)) / (ts * ts))
     eye = torch.eye(3, dtype=r.dtype, device=r.device)
     K = skew(r)
-    K2 = r[..., :, None] * r[..., None, :] - theta2[..., None, None] * eye
-    return eye + a[..., None, None] * K + b[..., None, None] * K2
+    K2 = r[..., :, None] * r[..., None, :] - theta2 * eye
+    return eye + a * K + b * K2
 
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """The port stands alone: no module under sphericalsfm_tpu_torch/, nor the
-files the card's machine runs beside it (chip_smoke.py, the multi-process
-BA worker), imports jax or the JAX package. An AST scan, not a subprocess import, because an
+files the card's machine runs beside it (chip_smoke.py, bench_torch.py, the
+multi-process BA worker, the evaluation suite's script), imports jax or the
+JAX package. An AST scan, not a subprocess import, because an
 interpreter start-up hook may import jax by itself."""
 
 import ast
@@ -25,12 +26,13 @@ def _imported_roots(tree):
 
 # files outside the package that the card's machine runs
 CARD_FILES = [PKG.parent / "chip_smoke.py", PKG.parent / "tests" / "_torch_multihost_worker.py",
-              PKG.parent / "scripts" / "eval_suite_torch.py"]
+              PKG.parent / "scripts" / "eval_suite_torch.py", PKG.parent / "bench_torch.py"]
 
 
 def test_port_imports_no_jax():
     files = sorted(PKG.rglob("*.py")) + CARD_FILES
     assert len(files) > 20, files
+    assert PKG / "eval" / "bench.py" in files
     bad = []
     for f in files:
         roots = set(_imported_roots(ast.parse(f.read_text(), filename=str(f))))
