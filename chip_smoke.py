@@ -89,9 +89,10 @@ non-zero):
                < 0.5°, solves/s beside "eig"), eig_real_batched against
                torch.linalg.eig on 2048 float64 10×10 matrices (every real
                eigenvalue eig finds matched to 1e-8; both timed, and the
-               parts and the eager launch cost), 7- and 8-point exact recovery, the solver-bench verb
-               at 1000 trials, and the four comparison CSVs at the JAX
-               defaults (no figures: no matplotlib there). Its RANSAC and
+               parts and the eager launch cost), 7- and 8-point exact
+               recovery, the solver-bench verb at 1000 trials, and the four
+               comparison CSVs at the JAX defaults (no figures: no
+               matplotlib there). Its RANSAC and
                five-point workloads and scoring are the round bench's
                (sphericalsfm_tpu_torch/eval/bench.py), here in float64.
   7b. bench  — the round bench's rows that no other phase holds (eval/bench.py,
@@ -101,9 +102,11 @@ non-zero):
                focal solver (512 general-motion problems, float32; median
                focal error ≤ JAX's 7.419% + 1), detection ms per frame (the
                marginal of 8 640×480 frames over 2; positive or null) and the
-               matcher at 8 and 16 pairs × K = 4096 (bf16 against its plain
-               version to atol 1e-4, bf16/f32 ratio-test agreement ≥ 0.99);
-               one line per row with its gates, and both kernels launched.
+               matcher at 8 and 16 pairs × K = 4096 (bf16 at 8 pairs against
+               its plain version to atol 1e-4, float32 at 16 pairs to 1e-5,
+               bf16/f32 nearest-neighbour identity 1.0 and ratio-test
+               agreement ≥ 0.99); one line per row with its gates, and both
+               kernels launched.
   8. flow    — Horn–Schunck flow at 640×480 (4 levels × 60 iterations):
                the shift-recovery case of tests/test_panorama.py (median u
                within 0.35 px of 3, median |v| < 0.3), and one keyframe
@@ -734,17 +737,6 @@ def run_modes_phase(two_nn, device="cuda", F=24, W=320, H=240, focal=260.0):
     return launches
 
 
-def timed_s(fn, device="cuda", reps=3):
-    """Warm call, then the host-clock mean of `reps` synchronized calls."""
-    out = fn()
-    sync(device)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        out = fn()
-    sync(device)
-    return out, (time.perf_counter() - t0) / reps
-
-
 def general_problems(seed, batch, n_corr, device="cuda"):
     """tests/test_torch_solvers.py's exact general two-view problems."""
     from sphericalsfm_tpu_torch.geometry.so3 import np_so3_exp
@@ -791,7 +783,7 @@ def run_solvers_phase(device="cuda"):
     prob = bench.ransac_inputs(device, torch.float64)
     ransac = {}
     for name, run in bench.ransac_engines(prob).items():
-        res, dt = timed_s(lambda: run(torch.Generator(device=device).manual_seed(
+        res, dt = bench.timed(lambda: run(torch.Generator(device=device).manual_seed(
             bench.RANSAC_SAMPLE_SEED)), device)
         err = bench.axis_angle_error_deg(res.r.cpu().numpy(), prob.R.cpu().numpy())
         ransac[name] = dict(median_rot_deg=float(np.median(err)), pairs_per_s=bench.PAIRS / dt,
@@ -819,21 +811,21 @@ def run_solvers_phase(device="cuda"):
 
     # (3) eig_real_batched against torch.linalg.eig on 2048 10×10 matrices
     Ms = torch.as_tensor(np.random.default_rng(7).normal(size=(2048, 10, 10)), device=device)
-    (lam, _, valid), dt_q = timed_s(lambda: eig_real_batched(Ms), device)
-    (w, _), dt_e = timed_s(lambda: torch.linalg.eig(Ms), device, reps=1)
+    (lam, _, valid), dt_q = bench.timed(lambda: eig_real_batched(Ms), device)
+    (w, _), dt_e = bench.timed(lambda: torch.linalg.eig(Ms), device, reps=1)
     # its parts: without the 60 Aberth iterations, and the polish's 11×11
     # QR as geqrf (what it runs) against torch.linalg.qr forming Q
-    _, dt_no_aberth = timed_s(lambda: eig_real_batched(Ms, aberth_iters=0), device)
+    _, dt_no_aberth = bench.timed(lambda: eig_real_batched(Ms, aberth_iters=0), device)
     J = torch.as_tensor(np.random.default_rng(8).normal(size=(20480, 11, 11)), device=device)
-    _, dt_geqrf = timed_s(lambda: torch.geqrf(J), device)
-    _, dt_qr = timed_s(lambda: torch.linalg.qr(J), device, reps=1)
+    _, dt_geqrf = bench.timed(lambda: torch.geqrf(J), device)
+    _, dt_qr = bench.timed(lambda: torch.linalg.qr(J), device, reps=1)
 
     def chained(x, n=1500):           # eager launch cost: one small op after another
         for _ in range(n):
             x = x * 1.0000001
         return x
 
-    _, dt_chain = timed_s(lambda: chained(Ms[:, 0]), device)
+    _, dt_chain = bench.timed(lambda: chained(Ms[:, 0]), device)
     w, lam, valid = w.cpu().numpy(), lam.cpu().numpy(), valid.cpu().numpy()
     found = total = false_pos = 0
     for i in range(len(w)):
@@ -1239,16 +1231,16 @@ def run_ba_scale_phase(device="cuda", sizes=None):
 
     lam = torch.full((), 1e-4, dtype=torch.float32, device=device)
     state = (prep.focal, prep.cam_t, prep.cam_r, prep.points, prep, lam, 1.0, torch.float32)
-    assembly_ms = cuda_ms(lambda: ba._assemble_reduced(*state), reps=5, warmup=1)
+    assembly_ms = bench.device_ms(lambda: ba._assemble_reduced(*state), device, reps=5, warmup=1)
     rs = ba._assemble_reduced(*state)
     op = ba._pcg_operator(rs, lam, torch.float32)
     op_c = ba._pcg_operator(rs, lam, torch.float32, ba._coarse_tables(prep, 16))
     gen = torch.Generator(device=device).manual_seed(0)
     vc = torch.randn(rs.free_c.shape, generator=gen, device=device) * rs.free_c
     vf = torch.zeros((), device=device)
-    matvec_ms = cuda_ms(lambda: op.matvec(vc, vf), reps=50)
-    precond_ms = cuda_ms(lambda: op.precond(vc, vf), reps=50)
-    coarse_precond_ms = cuda_ms(lambda: op_c.precond(vc, vf), reps=50)
+    matvec_ms = bench.device_ms(lambda: op.matvec(vc, vf), device, reps=50)
+    precond_ms = bench.device_ms(lambda: op.precond(vc, vf), device, reps=50)
+    coarse_precond_ms = bench.device_ms(lambda: op_c.precond(vc, vf), device, reps=50)
     bound_ms, nbytes = matvec_bound(prep, K)
     del rs, op, op_c
 
@@ -1280,15 +1272,6 @@ def run_ba_scale_phase(device="cuda", sizes=None):
 
 
 MESH_SHARDS = 4   # logical shards on one card: Mesh((cuda:0,) * 4)
-
-
-def timed(fn, device):
-    """fn() and its wall seconds, synchronized at both ends."""
-    sync(device)
-    t0 = time.perf_counter()
-    out = fn()
-    sync(device)
-    return out, time.perf_counter() - t0
 
 
 def equal_tables(a, b):
@@ -1327,6 +1310,9 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
         build_feature_tracks, filter_triplet_cycles,
     )
 
+    def timed_once(fn, dev):          # one synchronized call
+        return bench.timed(fn, dev, reps=1, warmup=0)
+
     dev = torch.device(device)
     mesh = Mesh([dev] * shards)
     cfg = main_config()
@@ -1334,9 +1320,9 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
     focal = 0.8 * W
     out, secs, failures = {"shards": shards, "label": "logical shards on one card"}, {}, []
 
-    feats0, secs["detect_single_s"] = timed(
+    feats0, secs["detect_single_s"] = timed_once(
         lambda: detect_features(gray, color, cfg.frontend, device=dev), dev)
-    feats1, secs["detect_mesh_s"] = timed(
+    feats1, secs["detect_mesh_s"] = timed_once(
         lambda: detect_features(gray, color, cfg.frontend, mesh=mesh), dev)
     out["detect_bit_equal"] = bool(
         all(np.array_equal(getattr(feats0, k), getattr(feats1, k))
@@ -1345,12 +1331,12 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
 
     pi, pj = all_pairs(F)
     reset_counts(two_nn)
-    m0, secs["match_single_s"] = timed(
+    m0, secs["match_single_s"] = timed_once(
         lambda: match_pairs(feats0, pi, pj, cfg.frontend, device=dev), dev)
     single_launches = two_nn.launches
     reset_counts(two_nn)
-    m1, secs["match_mesh_s"] = timed(lambda: match_pairs(feats0, pi, pj, cfg.frontend,
-                                                         mesh=mesh), dev)
+    m1, secs["match_mesh_s"] = timed_once(lambda: match_pairs(feats0, pi, pj, cfg.frontend,
+                                                              mesh=mesh), dev)
     mesh_launches, mesh_routes = two_nn.launches, dict(two_nn.route_launches)
     chunks = math.ceil(len(pi) / CHUNK)
     expected = sum(min(shards, len(pi) - s) for s in range(0, len(pi), CHUNK))
@@ -1363,9 +1349,9 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
                  min_num_inliers=cfg.ransac.min_num_inliers,
                  num_hypotheses=cfg.ransac.num_hypotheses, chunk_size=cfg.ransac.pair_chunk,
                  round_size=cfg.ransac.round_size, confidence=cfg.ransac.confidence)
-    pw0, secs["pairwise_single_s"] = timed(lambda: estimate_pairwise(
+    pw0, secs["pairwise_single_s"] = timed_once(lambda: estimate_pairwise(
         generator(dev, 0), feats0.xy, pi, pj, *m0, intr, device=dev, **pw_kw), dev)
-    pw1, secs["pairwise_mesh_s"] = timed(lambda: estimate_pairwise(
+    pw1, secs["pairwise_mesh_s"] = timed_once(lambda: estimate_pairwise(
         generator(dev, 0), feats0.xy, pi, pj, *m0, intr, mesh=mesh, **pw_kw), dev)
     rot_diff = np.rad2deg(np.linalg.norm(pw0.r - pw1.r, axis=-1))
     out.update(pairwise_keep_equal=bool((pw0.keep == pw1.keep).all()),
@@ -1390,9 +1376,9 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
     base = SfMMap.build(intr, rots.cpu().numpy(), tracks, feats0.xy, colors=feats0.color,
                         device=dev)
     maps = [copy.deepcopy(base) for _ in range(3)]
-    _, secs["retriangulate_single_s"] = timed(lambda: maps[0].retriangulate(generator(dev, 1)),
-                                              dev)
-    _, secs["retriangulate_mesh_s"] = timed(
+    _, secs["retriangulate_single_s"] = timed_once(
+        lambda: maps[0].retriangulate(generator(dev, 1)), dev)
+    _, secs["retriangulate_mesh_s"] = timed_once(
         lambda: maps[1].retriangulate(generator(dev, 1), mesh=mesh), dev)
     ok0, ok1 = maps[0].point_valid(), maps[1].point_valid()
     out.update(points=int(ok0.sum()), retriangulate_ok_equal=bool(np.array_equal(ok0, ok1)),
@@ -1403,8 +1389,8 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
     ba_kw = dict(max_iters=cfg.ba.max_iters, solve_dtype=cfg.ba.solve_dtype,
                  loss_scale=cfg.ba.loss_scale, pcg_rtol=cfg.ba.pcg_rtol,
                  pcg_iters=cfg.ba.pcg_iters)
-    st0, secs["optimize_single_s"] = timed(lambda: maps[0].optimize(**ba_kw), dev)
-    st1, secs["optimize_mesh_s"] = timed(lambda: maps[1].optimize(**ba_kw, mesh=mesh), dev)
+    st0, secs["optimize_single_s"] = timed_once(lambda: maps[0].optimize(**ba_kw), dev)
+    st1, secs["optimize_mesh_s"] = timed_once(lambda: maps[1].optimize(**ba_kw, mesh=mesh), dev)
     st2 = maps[2].optimize(**ba_kw, mesh=mesh)
     opt_rel = abs(st1["final_cost"] - st0["final_cost"]) / st0["final_cost"]
     out.update(optimize=dict(single=st0, mesh=st1, rel_cost_diff=opt_rel),
@@ -1419,10 +1405,10 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
     desc32, valid = feats0.descriptor_dev.float(), feats0.valid_dev
     M = cfg.frontend.max_matches_per_pair
     reset_counts(two_nn)
-    ring, secs["ring_mesh_s"] = timed(lambda: ring_match_pairs(mesh, desc32, valid, M), dev)
+    ring, secs["ring_mesh_s"] = timed_once(lambda: ring_match_pairs(mesh, desc32, valid, M), dev)
     ring_launches = two_nn.route_launches["fma_f32"]
     ring_total = two_nn.launches
-    ref, secs["match_f32_single_s"] = timed(lambda: match_pairs_compact(
+    ref, secs["match_f32_single_s"] = timed_once(lambda: match_pairs_compact(
         desc32, valid, torch.as_tensor(pi, device=dev), torch.as_tensor(pj, device=dev), M,
         compute_dtype=torch.float32), dev)
     ring_equal = (np.array_equal(ring[0], pi) and equal_tables(ring[2:], [
@@ -1433,8 +1419,12 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
     b_j = Bf + torch.arange(Bf, device=dev).repeat_interleave(Bf)
     plain = reference(torch.cat([desc32[:Bf], desc32[Bf:2 * Bf]]),
                       torch.cat([valid[:Bf], valid[Bf:2 * Bf]]), b_i, b_j, torch.float32)
-    ring_err = compare_two_nn("ring step f32", (m1s.reshape(Bf * Bf, -1), m2s.reshape(
-        Bf * Bf, -1), nns.reshape(Bf * Bf, -1)), plain, valid[b_j.long()], 1e-5, 1e-5)
+    ring_check = bench.plain_check((m1s.reshape(Bf * Bf, -1), m2s.reshape(Bf * Bf, -1),
+                                    nns.reshape(Bf * Bf, -1)), plain, valid[b_j.long()],
+                                   torch.float32)
+    if not ring_check["ok"]:
+        raise AssertionError(f"ring step f32 != plain version: {ring_check}")
+    ring_err = ring_check["max_abs_err"]
     out.update(ring_equal=ring_equal, ring_launches=ring_launches,
                ring_expected_launches=shards * shards, ring_step_max_abs_err=ring_err,
                ring_matches=int(ring[4].sum()))
@@ -1444,10 +1434,11 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
     p = make_ring_scene(**(ba_sizes or bench.BA_SCALE), device=device)
     kw = dict(camera_solver="auto", max_iters=BA_ITERS, **bench.BA_SCALE_SOLVE)
     ba.bundle_adjust(p, **kw)                       # warm the single-device path
-    r_single, secs["ba_scale_single_s"] = timed(lambda: ba.bundle_adjust(p, **kw), dev)
-    r_a, secs["ba_scale_mesh_cold_s"] = timed(lambda: distributed_bundle_adjust(mesh, p, **kw),
-                                              dev)
-    r_b, secs["ba_scale_mesh_s"] = timed(lambda: distributed_bundle_adjust(mesh, p, **kw), dev)
+    r_single, secs["ba_scale_single_s"] = timed_once(lambda: ba.bundle_adjust(p, **kw), dev)
+    r_a, secs["ba_scale_mesh_cold_s"] = timed_once(
+        lambda: distributed_bundle_adjust(mesh, p, **kw), dev)
+    r_b, secs["ba_scale_mesh_s"] = timed_once(
+        lambda: distributed_bundle_adjust(mesh, p, **kw), dev)
     ba_rel = abs(float(r_a.cost) - float(r_single.cost)) / float(r_single.cost)
     out.update(ba_scale=dict(
         initial_cost=float(r_single.initial_cost), single_cost=float(r_single.cost),
@@ -1508,6 +1499,8 @@ def run_multihost_phase(device="cuda", shards=2, timeout=300):
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import _torch_multihost_worker as worker
 
+    from sphericalsfm_tpu_torch.eval import bench
+
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -1531,7 +1524,8 @@ def run_multihost_phase(device="cuda", shards=2, timeout=300):
             raise AssertionError(f"multihost worker exited {proc.returncode}:\n{log[-3000:]}")
         with open(out_path) as f:
             res = json.load(f)
-    local, local_s = timed(lambda: worker.run(device, shards), torch.device(device))
+    local, local_s = bench.timed(lambda: worker.run(device, shards), torch.device(device),
+                                 reps=1, warmup=0)
     keys = ("cost", "cam_r", "points", "cost_pcg", "cam_r_pcg")
     equal = {k: res[k] == local[k] for k in keys}
     pcg_rel = abs(res["cost_pcg"] - res["cost"]) / max(abs(res["cost"]), 1e-300)

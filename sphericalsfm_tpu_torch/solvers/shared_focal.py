@@ -80,10 +80,22 @@ def solve_shared_focal_6pt(u: torch.Tensor, v: torch.Tensor, min_focal: float = 
     Returns (Es (..., 12, 3, 3) calibrated-frame essential candidates,
     valid (..., 12), focal (..., 12)): four roots at each of the three
     best-separated minima of σ_min(C(f))."""
-    dtype, dev = u.dtype, u.device
+    return _sweep(_nullspace(u, v), min_focal, max_focal, num_focal_samples, polish_steps)
+
+
+def _nullspace(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(..., 9, 3): the eigenvectors of AᵀA for its three least eigenvalues,
+    A the epipolar rows of the first six correspondences' constraints."""
     A = _fundamental_rows(u, v)
     _, V = torch.linalg.eigh(A.transpose(-1, -2) @ A)
-    B = V[..., :, :3]                                             # (..., 9, 3)
+    return V[..., :, :3]
+
+
+def _sweep(B: torch.Tensor, min_focal: float = 0.3, max_focal: float = 3.0,
+           num_focal_samples: int = 64, polish_steps: int = 12):
+    """The focal sweep, polish and per-focal solve on a null-space basis B
+    (..., 9, 3); returns what `solve_shared_focal_6pt` returns."""
+    dtype, dev = B.dtype, B.device
     batch = B.shape[:-2]
 
     log_lo = torch.log(torch.tensor(min_focal, dtype=dtype, device=dev))
