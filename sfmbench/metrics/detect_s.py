@@ -1,0 +1,7 @@
+"""detect_s: the `detect_features` stage's seconds, the mean over the window's captures."""
+
+from sfmbench.readers import stage_mean
+
+
+def read(rec):
+    return stage_mean(rec, "detect_features")

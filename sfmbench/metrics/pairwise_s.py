@@ -1,0 +1,7 @@
+"""pairwise_s: the `estimate_pairwise` stage's seconds, the mean over the window's captures."""
+
+from sfmbench.readers import stage_mean
+
+
+def read(rec):
+    return stage_mean(rec, "estimate_pairwise")
