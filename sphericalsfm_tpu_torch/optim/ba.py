@@ -52,6 +52,7 @@ import torch
 
 from ..geometry.so3 import so3_exp
 from ..ops.linalg import inv3x3
+from ..tracing import span
 from .lm import cauchy_rho, cauchy_weight
 
 MAX_DENSE_CAMERAS = 512       # "auto" takes the PCG above this many cameras
@@ -781,53 +782,63 @@ def bundle_adjust(p, max_iters: int = 50, loss_scale: float = 1.0,
     forcing; `pcg_coarse` > 0 adds a coarse level over groups of that many
     cameras), or "auto" (see `prepare_problem`). Each LM step costs one
     host sync for the accept test, plus one per CG iteration on the PCG.
-    `bundle_adjust.solves` counts the calls by resolved solver."""
-    p, solver = prepare_problem(p, camera_solver)
-    bundle_adjust.solves[solver] += 1
-    solve_dtype = getattr(torch, solve_dtype_name)
-    parts, _ = _shards(p)
-    first = parts[0]
-    C = first.cam_t.shape[0]
-    dtype, dev = first.cam_t.dtype, first.cam_t.device
-    coarse = (_coarse_tables(p, int(pcg_coarse))
-              if solver == "pcg" and pcg_coarse and C > 2 * int(pcg_coarse) else None)
-    f, ct, cr = first.focal, first.cam_t, first.cam_r
-    pts = tuple(q.points for q in parts) if isinstance(p, ShardedBAProblem) else p.points
-    cost = c0 = ba_cost(f, ct, cr, pts, p, loss_scale)
-    cost_c = float(cost)
+    `bundle_adjust.solves` counts the calls by resolved solver. Under a
+    profiler (`tracing`): `stage:ba.prepare` (set-up and the initial cost),
+    then a `call:ba.iteration` for each LM step holding `stage:ba.assemble`,
+    `stage:ba.solve` and `stage:ba.step` (the new cost, its read-back and
+    the accept test)."""
+    with span("stage:ba.prepare"):
+        p, solver = prepare_problem(p, camera_solver)
+        bundle_adjust.solves[solver] += 1
+        solve_dtype = getattr(torch, solve_dtype_name)
+        parts, _ = _shards(p)
+        first = parts[0]
+        C = first.cam_t.shape[0]
+        dtype, dev = first.cam_t.dtype, first.cam_t.device
+        coarse = (_coarse_tables(p, int(pcg_coarse))
+                  if solver == "pcg" and pcg_coarse and C > 2 * int(pcg_coarse) else None)
+        f, ct, cr = first.focal, first.cam_t, first.cam_r
+        pts = tuple(q.points for q in parts) if isinstance(p, ShardedBAProblem) else p.points
+        cost = c0 = ba_cost(f, ct, cr, pts, p, loss_scale)
+        cost_c = float(cost)
     lam, dec = float(init_lambda), float(init_dec)
     # the PCG's warm start: the previous step, rejected or not
     d_cam, d_f = torch.zeros((C, 6), dtype=dtype, device=dev), torch.zeros((), dtype=dtype,
                                                                           device=dev)
     it = cg_total = 0
     while it < max_iters:
-        lam_t = torch.full((), lam, dtype=dtype, device=dev)  # a fill, no host copy
-        rs = _assemble_reduced(f, ct, cr, pts, p, lam_t, loss_scale, solve_dtype)
-        if solver == "pcg":
-            d_f, d_cam, d_pts, md, n_cg = _pcg_from_rs(rs, p, lam_t, solve_dtype, pcg_iters,
-                                                       pcg_rtol, coarse, d_cam, d_f)
-            cg_total += n_cg
-        else:
-            d_f, d_cam, d_pts, md = _dense_from_rs(rs, p, lam_t, solve_dtype)
-        del rs
-        f_n, ct_n, cr_n = f + d_f, ct + d_cam[:, :3], cr + d_cam[:, 3:]
-        pts_n = (tuple(a + b for a, b in zip(pts, d_pts)) if isinstance(p, ShardedBAProblem)
-                 else pts + d_pts)
-        new_cost = ba_cost(f_n, ct_n, cr_n, pts_n, p, loss_scale)
-        new_c, md_c = torch.stack([new_cost, md.to(new_cost.dtype)]).tolist()
-        it += 1
-        rho = (cost_c - new_c) / max(md_c, 1e-30)
-        if np.isfinite(new_c) and md_c > 0 and rho > 1e-3:
-            lam = max(lam * max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3), 1e-16)
-            dec = 2.0
-            f, ct, cr, pts = f_n, ct_n, cr_n, pts_n
-            rel = (cost_c - new_c) / max(cost_c, 1e-30)
-            cost, cost_c = new_cost, new_c
-            if rel < ftol:
-                break
-        else:
-            lam = lam * dec
-            dec = dec * 2.0
+        with span("call:ba.iteration"):
+            with span("stage:ba.assemble"):
+                lam_t = torch.full((), lam, dtype=dtype, device=dev)  # a fill, no host copy
+                rs = _assemble_reduced(f, ct, cr, pts, p, lam_t, loss_scale, solve_dtype)
+            with span("stage:ba.solve"):
+                if solver == "pcg":
+                    d_f, d_cam, d_pts, md, n_cg = _pcg_from_rs(rs, p, lam_t, solve_dtype,
+                                                               pcg_iters, pcg_rtol, coarse,
+                                                               d_cam, d_f)
+                    cg_total += n_cg
+                else:
+                    d_f, d_cam, d_pts, md = _dense_from_rs(rs, p, lam_t, solve_dtype)
+                del rs
+            with span("stage:ba.step"):
+                f_n, ct_n, cr_n = f + d_f, ct + d_cam[:, :3], cr + d_cam[:, 3:]
+                pts_n = (tuple(a + b for a, b in zip(pts, d_pts))
+                         if isinstance(p, ShardedBAProblem) else pts + d_pts)
+                new_cost = ba_cost(f_n, ct_n, cr_n, pts_n, p, loss_scale)
+                new_c, md_c = torch.stack([new_cost, md.to(new_cost.dtype)]).tolist()
+                it += 1
+                rho = (cost_c - new_c) / max(md_c, 1e-30)
+                if np.isfinite(new_c) and md_c > 0 and rho > 1e-3:
+                    lam = max(lam * max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3), 1e-16)
+                    dec = 2.0
+                    f, ct, cr, pts = f_n, ct_n, cr_n, pts_n
+                    rel = (cost_c - new_c) / max(cost_c, 1e-30)
+                    cost, cost_c = new_cost, new_c
+                    if rel < ftol:
+                        break
+                else:
+                    lam = lam * dec
+                    dec = dec * 2.0
         if lam > 1e12:
             break
     return BAResult(focal=f, cam_t=ct, cam_r=cr, points=_gather_points(p, pts), cost=cost,

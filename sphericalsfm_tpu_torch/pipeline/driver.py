@@ -21,7 +21,14 @@ reprojection overlays (`pipeline.debug`, needs `cv2`). Every BA pass runs at
 `cfg.ba.pcg_rtol` / `cfg.ba.pcg_iters` when it takes the PCG camera solve.
 With `cfg.profile_dir`, a `torch.profiler` trace (CPU and, on a card, CUDA
 activity) covers the driver from the frontend to the end of the writers and
-lands in that directory as the Chrome trace `trace.json`. `device=None` means
+lands in that directory as the Chrome trace `trace.json`. In it each
+`StageLogger` stage is the span `stage:<stage>`, and inside the stages are
+the port's own spans (`tracing`): the leaves `stage:pairwise.*`,
+`stage:ransac.*`, `stage:ba.*`, `stage:sfm.retriangulate` and
+`stage:write.*`, and the containers `call:ransac.chunk`, `call:ransac.round`
+and `call:ba.iteration`. The `estimate_pairwise` record counts the RANSAC
+chunks, rounds and the share of pair-rounds spent on pairs still running
+(`chunks`, `rounds`, `active_pct`). `device=None` means
 CUDA and raises when no card is present; the CPU path runs only when the
 caller passes `device="cpu"`. Random streams come from `torch.Generator`s
 seeded where the JAX driver seeds `PRNGKey(0)` (pairwise RANSAC) and folds
@@ -52,6 +59,7 @@ from ..optim.pose_graph import (
     optimize_rotations_and_focal, rotations_at_focal,
 )
 from ..ransac.sixpoint import estimate_focal_sixpoint
+from ..tracing import span
 from .frontend import FrameFeatures, detect_features, load_frames, match_pairs, window_pairs
 from .pairwise import all_pairs, estimate_pairwise, estimate_pairwise_five_point, pad_match_table
 from .sfm import SfMMap
@@ -60,25 +68,34 @@ from .tracks import build_feature_tracks, filter_triplet_cycles, largest_connect
 
 class StageLogger:
     """Per-stage wall-clock and counters, streamed as JSON lines to
-    `stages.jsonl` and kept in memory."""
+    `stages.jsonl` and kept in memory. With `spans`, each stage is also the
+    profiler span `stage:<name>`, between the same device syncs."""
 
-    def __init__(self, out_dir: str | None = None, verbose: bool = True):
+    def __init__(self, out_dir: str | None = None, verbose: bool = True, spans: bool = False):
         self.records = []
         self.verbose = verbose
+        self.spans = spans
         self.path = os.path.join(out_dir, "stages.jsonl") if out_dir else None
         self._t0 = None
         self._name = None
+        self._stage_span = None
         self.sync = None  # called before each stage's clock reads (device sync)
 
     def start(self, name: str):
         if self.sync:
             self.sync()
         self._name = name
+        if self.spans:
+            self._stage_span = span(f"stage:{name}")
+            self._stage_span.__enter__()
         self._t0 = time.perf_counter()
 
     def end(self, **metrics):
         if self.sync:
             self.sync()
+        if self._stage_span is not None:
+            self._stage_span.__exit__(None, None, None)
+            self._stage_span = None
         rec = {"stage": self._name, "seconds": round(time.perf_counter() - self._t0, 3),
                **metrics}
         self.records.append(rec)
@@ -178,10 +195,11 @@ def run_frontend(video: str | None, cfg: PipelineConfig, log: StageLogger,
         # are no 1/512 multiples, so they persist as float
         desc_store = (fr.feats.descriptor if cfg.frontend.detector == "opencv" else
                       np.clip(np.round(fr.feats.descriptor * 512.0), 0, 255).astype(np.uint8))
-        np.savez(cache_path, xy=fr.feats.xy, descriptor=desc_store, valid=fr.feats.valid,
-                 color=fr.feats.color, counts=fr.feats.counts, width=fr.feats.width,
-                 height=fr.feats.height, pair_i=fr.pair_i, pair_j=fr.pair_j,
-                 idx0=fr.idx0, idx1=fr.idx1, mmask=fr.mmask)
+        with span("stage:write.cache"):
+            np.savez(cache_path, xy=fr.feats.xy, descriptor=desc_store, valid=fr.feats.valid,
+                     color=fr.feats.color, counts=fr.feats.counts, width=fr.feats.width,
+                     height=fr.feats.height, pair_i=fr.pair_i, pair_j=fr.pair_j,
+                     idx0=fr.idx0, idx1=fr.idx1, mmask=fr.mmask)
         log.end(bytes=os.path.getsize(cache_path))
     return fr
 
@@ -218,7 +236,7 @@ def run_calibrated(video: str | None, intrinsics: Intrinsics, output_dir: str,
     dev = resolve_device(device)
     mesh = pipeline_mesh(cfg, dev)
     os.makedirs(output_dir, exist_ok=True)
-    log = StageLogger(output_dir)
+    log = StageLogger(output_dir, spans=bool(cfg.profile_dir))
     if dev.type == "cuda":
         log.sync = torch.cuda.synchronize
     intrinsics = Intrinsics(float(intrinsics.focal), float(intrinsics.cx),
@@ -240,7 +258,7 @@ def run_calibrated(video: str | None, intrinsics: Intrinsics, output_dir: str,
             confidence=cfg.ransac.confidence, device=dev, mesh=mesh)
         keep = _graph_from_pairwise(fr, pw, pw.keep, cfg.graph.min_rotation_deg,
                                     best_only=cfg.graph.best_only)
-        log.end(kept_pairs=int(keep.sum()), loop_closures=pw.loop_closure_count)
+        log.end(kept_pairs=int(keep.sum()), loop_closures=pw.loop_closure_count, **pw.counts)
         if pw.loop_closure_count == 0:
             print("warning: no loop closures found")
 
@@ -272,16 +290,11 @@ def run_calibrated(video: str | None, intrinsics: Intrinsics, output_dir: str,
                      loss_scale=cfg.ba.loss_scale, pcg_rtol=cfg.ba.pcg_rtol,
                      pcg_iters=cfg.ba.pcg_iters, mesh=mesh)
         log.start("spherical_ba")
-        t0 = time.perf_counter()
         stats1 = m.optimize(**ba_kw)
-        t1 = time.perf_counter()
         m.retriangulate(generator(dev, 2), mesh=mesh)
-        t2 = time.perf_counter()
         stats2 = m.optimize(**ba_kw, init_lambda=_warm_lambda(stats1))
         log.end(**{f"ba1_{k}": v for k, v in stats1.items()},
-                **{f"ba2_{k}": v for k, v in stats2.items()},
-                ba1_s=round(t1 - t0, 2), retri_s=round(t2 - t1, 2),
-                ba2_s=round(time.perf_counter() - t2, 2))
+                **{f"ba2_{k}": v for k, v in stats2.items()})
         m.write_camera_centers_obj(os.path.join(output_dir, "pre-loop-cameras.obj"))
 
         log.start("general_ba")
@@ -341,7 +354,7 @@ def run_uncalibrated(video: str | None, output_dir: str, cfg: PipelineConfig | N
     dev = resolve_device(device)
     mesh = pipeline_mesh(cfg, dev)
     os.makedirs(output_dir, exist_ok=True)
-    log = StageLogger(output_dir)
+    log = StageLogger(output_dir, spans=bool(cfg.profile_dir))
     if dev.type == "cuda":
         log.sync = torch.cuda.synchronize
 
@@ -377,7 +390,7 @@ def run_uncalibrated(video: str | None, output_dir: str, cfg: PipelineConfig | N
                 confidence=cfg.ransac.confidence, device=dev, mesh=mesh)
         keep = _graph_from_pairwise(fr, pw, pw.keep, cfg.graph.min_rotation_deg,
                                     best_only=cfg.graph.best_only)
-        log.end(kept_pairs=int(keep.sum()), loop_closures=pw.loop_closure_count)
+        log.end(kept_pairs=int(keep.sum()), loop_closures=pw.loop_closure_count, **pw.counts)
 
         log.start("largest_component")
         frames, remap = largest_connected_component(F, fr.pair_i, fr.pair_j, keep)
@@ -512,15 +525,16 @@ def _write_outputs(m: SfMMap, output_dir: str, fr: FrontendResult):
     m.write_camera_centers_obj(os.path.join(output_dir, "cameras.obj"))
     m.write_colmap(os.path.join(output_dir, "sparse", "model"), fr.feats.width,
                    fr.feats.height)
-    errs = m.reprojection_errors()
-    live = np.asarray(m.obs_valid) & (np.linalg.norm(m.points[m.obs_pt], axis=-1) > 0)
-    summary = {
-        "cameras": int(m.num_cameras),
-        "points": int(m.point_valid().sum()),
-        "observations": int(live.sum()),
-        "focal": float(m.intrinsics.focal),
-        "mean_reproj_px": float(errs[live].mean()) if live.any() else None,
-        "median_reproj_px": float(np.median(errs[live])) if live.any() else None,
-    }
-    with open(os.path.join(output_dir, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=1)
+    with span("stage:write.summary"):
+        errs = m.reprojection_errors()
+        live = np.asarray(m.obs_valid) & (np.linalg.norm(m.points[m.obs_pt], axis=-1) > 0)
+        summary = {
+            "cameras": int(m.num_cameras),
+            "points": int(m.point_valid().sum()),
+            "observations": int(live.sum()),
+            "focal": float(m.intrinsics.focal),
+            "mean_reproj_px": float(errs[live].mean()) if live.any() else None,
+            "median_reproj_px": float(np.median(errs[live])) if live.any() else None,
+        }
+        with open(os.path.join(output_dir, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=1)

@@ -2,10 +2,12 @@
 `sphericalsfm_tpu/pipeline/pairwise.py` (`estimate_pairwise`,
 `estimate_pairwise_five_point`, `pad_match_table`, `all_pairs`).
 
-Matched pixels lift through K⁻¹ to rays in float64 on the device; each
+Matched pixels lift through K⁻¹ to rays in float64 on the host; each
 chunk of pairs runs the batched adaptive spherical RANSAC (the static one
 with `adaptive=False`; in five-point mode, the general 5-point RANSAC) with
-the squared MSAC threshold (px·K⁻¹₀₀)².
+the squared MSAC threshold (px·K⁻¹₀₀)². Under a profiler, the lift, each
+chunk's upload and the final gather are `stage:pairwise.*` spans, each
+chunk a `call:ransac.chunk` (`tracing`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ..device import GEOM_DTYPE
 from ..geometry.pose import Intrinsics
 from ..ransac.general_essential import general_essential_ransac
 from ..ransac.spherical import spherical_ransac, spherical_ransac_adaptive
+from ..tracing import span
 
 
 class PairwiseResult(NamedTuple):
@@ -30,6 +33,10 @@ class PairwiseResult(NamedTuple):
     inlier_mask: np.ndarray   # (P, Nmax)
     keep: np.ndarray          # (P,)
     loop_closure_count: int
+    # {chunks}, and with the adaptive engine {rounds, active_pct}: rounds
+    # summed over chunks, and the pair-rounds of pairs still running over
+    # the pair-rounds computed, in %
+    counts: dict
 
 
 def estimate_pairwise(
@@ -64,7 +71,7 @@ def estimate_pairwise(
             r=np.zeros((0, 3)), E=np.zeros((0, 3, 3)),
             num_inliers=np.zeros(0, np.int64),
             inlier_mask=np.zeros((0, Nmax), bool), keep=np.zeros(0, bool),
-            loop_closure_count=0)
+            loop_closure_count=0, counts=dict(chunks=0))
     dev = torch.device(device) if device is not None else gen.device
     u, v, sq_thresh = _rays_and_threshold(points, pair_i, pair_j, idx0, idx1, intrinsics,
                                           inlier_threshold_px)
@@ -78,16 +85,19 @@ def estimate_pairwise(
     outs = []
     for s in range(0, P, chunk_size):
         e = min(s + chunk_size, P)
-        args = (gen, torch.as_tensor(u[s:e], dtype=GEOM_DTYPE, device=dev),
-                torch.as_tensor(v[s:e], dtype=GEOM_DTYPE, device=dev),
-                torch.as_tensor(match_mask[s:e], device=dev), sq_thresh)
-        if adaptive:
-            outs.append(spherical_ransac_adaptive(*args, round_size=round_size,
-                                                  max_rounds=max_rounds, confidence=confidence,
-                                                  inward=inward, devices=devices))
-        else:
-            outs.append(spherical_ransac(*args, num_hypotheses=num_hypotheses, inward=inward,
-                                         devices=devices))
+        with span("call:ransac.chunk"):
+            with span("stage:pairwise.upload"):
+                args = (gen, torch.as_tensor(u[s:e], dtype=GEOM_DTYPE, device=dev),
+                        torch.as_tensor(v[s:e], dtype=GEOM_DTYPE, device=dev),
+                        torch.as_tensor(match_mask[s:e], device=dev), sq_thresh)
+            if adaptive:
+                outs.append(spherical_ransac_adaptive(*args, round_size=round_size,
+                                                      max_rounds=max_rounds,
+                                                      confidence=confidence, inward=inward,
+                                                      devices=devices))
+            else:
+                outs.append(spherical_ransac(*args, num_hypotheses=num_hypotheses,
+                                             inward=inward, devices=devices))
     return _gather_results(outs, pair_i, pair_j, match_mask, min_num_inliers)
 
 
@@ -96,29 +106,44 @@ def _rays_and_threshold(points, pair_i, pair_j, idx0, idx1, intrinsics, inlier_t
     squared MSAC threshold (px·K⁻¹₀₀)²."""
     focal = float(intrinsics.focal)
     cx, cy = float(intrinsics.cx), float(intrinsics.cy)
-    pts = np.asarray(points, np.float64)
 
     def rays(uv):
         x = (uv[..., 0] - cx) / focal
         y = (uv[..., 1] - cy) / focal
         return np.stack([x, y, np.ones_like(x)], axis=-1)
 
-    return (rays(pts[pair_i[:, None], idx0]), rays(pts[pair_j[:, None], idx1]),
-            (inlier_threshold_px / focal) ** 2)
+    with span("stage:pairwise.rays"):
+        pts = np.asarray(points, np.float64)
+        return (rays(pts[pair_i[:, None], idx0]), rays(pts[pair_j[:, None], idx1]),
+                (inlier_threshold_px / focal) ** 2)
 
 
 def _gather_results(outs, pair_i, pair_j, match_mask, min_num_inliers) -> PairwiseResult:
     """Per-chunk RANSAC results → host PairwiseResult with the keep test
-    (more inliers than the minimum, and at least that many matches)."""
-    r = torch.cat([o.r for o in outs]).cpu().numpy()
-    E = torch.cat([o.E for o in outs]).cpu().numpy()
-    num_inliers = torch.cat([o.num_inliers for o in outs]).cpu().numpy()
-    inlier_mask = torch.cat([o.inlier_mask for o in outs]).cpu().numpy()
-    enough = match_mask.sum(axis=1) >= min_num_inliers
-    keep = (num_inliers > min_num_inliers) & enough
-    loops = int(np.sum(keep & (pair_i + 1 != pair_j)))
+    (more inliers than the minimum, and at least that many matches), and
+    the counts: a chunk runs rounds while any of its pairs runs, and a pair
+    that stops never restarts, so a chunk ran as many rounds as its
+    longest-running pair."""
+    with span("stage:pairwise.gather"):
+        r = torch.cat([o.r for o in outs]).cpu().numpy()
+        E = torch.cat([o.E for o in outs]).cpu().numpy()
+        spherical = hasattr(outs[0], "rounds")        # the five-point engine runs no rounds
+        per_pair = torch.cat([torch.stack([o.num_inliers, o.rounds]) if spherical
+                              else o.num_inliers[None] for o in outs], dim=1).cpu().numpy()
+        num_inliers = per_pair[0]
+        inlier_mask = torch.cat([o.inlier_mask for o in outs]).cpu().numpy()
+        enough = match_mask.sum(axis=1) >= min_num_inliers
+        keep = (num_inliers > min_num_inliers) & enough
+        loops = int(np.sum(keep & (pair_i + 1 != pair_j)))
+        counts = dict(chunks=len(outs))
+        if spherical and per_pair[1].any():         # the adaptive engine
+            sizes = [o.r.shape[0] for o in outs]
+            chunk_rounds = [int(c.max()) for c in np.split(per_pair[1], np.cumsum(sizes)[:-1])]
+            computed = sum(n * b for n, b in zip(chunk_rounds, sizes))
+            counts.update(rounds=sum(chunk_rounds),
+                          active_pct=100.0 * float(per_pair[1].sum()) / computed)
     return PairwiseResult(r=r, E=E, num_inliers=num_inliers, inlier_mask=inlier_mask,
-                          keep=keep, loop_closure_count=loops)
+                          keep=keep, loop_closure_count=loops, counts=counts)
 
 
 def estimate_pairwise_five_point(

@@ -6,7 +6,10 @@ compute stages (RANSAC retriangulation of every track, robust BA) upload
 them to the map's device as float64 tensors. Writers produce the same
 bytes as the JAX package's. BA picks its camera solver as the JAX map
 does, on the camera count rounded up its 1.25× ladder (the JAX map pads
-its tensors to that count; the port does not pad).
+its tensors to that count; the port does not pad). Under a profiler
+(`tracing`), retriangulation is the span `stage:sfm.retriangulate`, BA's
+problem building `stage:ba.prepare`, and each writer `stage:write.poses`,
+`.obj` or `.colmap`.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ..optim.ba import (
     resolve_camera_solver, sort_obs_by_camera,
 )
 from ..ransac.triangulation import triangulation_ransac
+from ..tracing import span
 from .tracks import Tracks
 
 
@@ -115,29 +119,30 @@ class SfMMap:
         draws (`parallel.sharded_retriangulate`)."""
         if self.num_points == 0:
             return
-        nmax = int(np.bincount(self.obs_pt, minlength=1).max())
-        T = 4
-        while T < nmax:
-            T *= 2
-        track_obs, track_mask = build_tracks(self.obs_pt, self.num_points, max_track=T)
-        track_mask = track_mask & self.obs_valid[track_obs]
-        cam = self.obs_cam[track_obs]
-        rs, ts = self.cam_r[cam], self.cam_t[cam]
-        uv = self.obs_uv[track_obs]
-        focal = float(self.intrinsics.focal)
-        X, ok = [], []
-        for s in range(0, self.num_points, chunk):
-            e = s + chunk
-            res = triangulation_ransac(
-                gen, self._tensor(rs[s:e]), self._tensor(ts[s:e]), self._tensor(uv[s:e]),
-                self._tensor(track_mask[s:e], torch.bool), focal,
-                sq_thresh=sq_thresh, num_hypotheses=num_hypotheses,
-                devices=None if mesh is None else mesh.devices)
-            X.append(res.X)
-            ok.append(res.ok)
-        X = torch.cat(X).cpu().numpy()
-        ok = torch.cat(ok).cpu().numpy()
-        self.points = np.where(ok[:, None], X, 0.0)
+        with span("stage:sfm.retriangulate"):
+            nmax = int(np.bincount(self.obs_pt, minlength=1).max())
+            T = 4
+            while T < nmax:
+                T *= 2
+            track_obs, track_mask = build_tracks(self.obs_pt, self.num_points, max_track=T)
+            track_mask = track_mask & self.obs_valid[track_obs]
+            cam = self.obs_cam[track_obs]
+            rs, ts = self.cam_r[cam], self.cam_t[cam]
+            uv = self.obs_uv[track_obs]
+            focal = float(self.intrinsics.focal)
+            X, ok = [], []
+            for s in range(0, self.num_points, chunk):
+                e = s + chunk
+                res = triangulation_ransac(
+                    gen, self._tensor(rs[s:e]), self._tensor(ts[s:e]), self._tensor(uv[s:e]),
+                    self._tensor(track_mask[s:e], torch.bool), focal,
+                    sq_thresh=sq_thresh, num_hypotheses=num_hypotheses,
+                    devices=None if mesh is None else mesh.devices)
+                X.append(res.X)
+                ok.append(res.ok)
+            X = torch.cat(X).cpu().numpy()
+            ok = torch.cat(ok).cpu().numpy()
+            self.points = np.where(ok[:, None], X, 0.0)
 
     def optimize(self, max_iters: int = 100, solve_dtype: str = "float64",
                  loss_scale: float = 1.0, ftol: float = 1e-6, pcg_rtol: float = 1e-4,
@@ -152,33 +157,34 @@ class SfMMap:
         if self.num_cameras == 0 or self.num_points == 0:
             return {}
         t0 = time.perf_counter()
-        nobs = np.bincount(self.obs_pt, weights=self.obs_valid.astype(float),
-                           minlength=self.num_points)
-        usable_pt = self.point_valid() & (nobs >= 3)
-        w = (self.obs_valid & usable_pt[self.obs_pt]).astype(float)
-        if w.sum() == 0:
-            return {}
-        b = torch.bool
-        prob = BAProblem(
-            focal=self._tensor(float(self.intrinsics.focal)),
-            cam_t=self._tensor(self.cam_t), cam_r=self._tensor(self.cam_r),
-            points=self._tensor(self.points),
-            obs_cam=self._tensor(self.obs_cam, torch.int64),
-            obs_pt=self._tensor(self.obs_pt, torch.int64),
-            obs_uv=self._tensor(self.obs_uv), obs_w=self._tensor(w),
-            focal_fixed=self._tensor(self.focal_fixed, b),
-            rot_fixed=self._tensor(self.rotation_fixed, b),
-            trans_fixed=self._tensor(self.translation_fixed, b),
-            point_fixed=self._tensor(self.point_fixed | ~usable_pt, b))
-        choice = "pcg" if camera_bucket(self.num_cameras) > MAX_DENSE_CAMERAS else "auto"
-        if mesh is None:
-            prob, solver = prepare_problem(prob, choice)
-        else:
-            from ..parallel.sharded import shard_ba_problem
+        with span("stage:ba.prepare"):
+            nobs = np.bincount(self.obs_pt, weights=self.obs_valid.astype(float),
+                               minlength=self.num_points)
+            usable_pt = self.point_valid() & (nobs >= 3)
+            w = (self.obs_valid & usable_pt[self.obs_pt]).astype(float)
+            if w.sum() == 0:
+                return {}
+            b = torch.bool
+            prob = BAProblem(
+                focal=self._tensor(float(self.intrinsics.focal)),
+                cam_t=self._tensor(self.cam_t), cam_r=self._tensor(self.cam_r),
+                points=self._tensor(self.points),
+                obs_cam=self._tensor(self.obs_cam, torch.int64),
+                obs_pt=self._tensor(self.obs_pt, torch.int64),
+                obs_uv=self._tensor(self.obs_uv), obs_w=self._tensor(w),
+                focal_fixed=self._tensor(self.focal_fixed, b),
+                rot_fixed=self._tensor(self.rotation_fixed, b),
+                trans_fixed=self._tensor(self.translation_fixed, b),
+                point_fixed=self._tensor(self.point_fixed | ~usable_pt, b))
+            choice = "pcg" if camera_bucket(self.num_cameras) > MAX_DENSE_CAMERAS else "auto"
+            if mesh is None:
+                prob, solver = prepare_problem(prob, choice)
+            else:
+                from ..parallel.sharded import shard_ba_problem
 
-            prob = sort_obs_by_camera(prob)
-            solver = resolve_camera_solver(prob, choice)
-            prob = shard_ba_problem(mesh, prob)
+                prob = sort_obs_by_camera(prob)
+                solver = resolve_camera_solver(prob, choice)
+                prob = shard_ba_problem(mesh, prob)
         t1 = time.perf_counter()
         res = bundle_adjust(prob, max_iters=max_iters, loss_scale=loss_scale, ftol=ftol,
                             solve_dtype_name=solve_dtype, camera_solver=solver,
@@ -249,7 +255,7 @@ class SfMMap:
     def write_poses(self, path: str, indices=None):
         """poses.txt: index + t then r, 15 decimals."""
         idx = indices if indices is not None else list(range(self.num_cameras))
-        with open(path, "w") as f:
+        with span("stage:write.poses"), open(path, "w") as f:
             for i in range(self.num_cameras):
                 vals = list(self.cam_t[i]) + list(self.cam_r[i])
                 f.write(f"{idx[i]} " + " ".join(f"{v:.15f}" for v in vals) + " \n")
@@ -257,25 +263,27 @@ class SfMMap:
     def write_points_obj(self, path: str, max_distance: float = 2000.0):
         """OBJ point cloud, dropping points farther than `max_distance` from
         the camera of their last valid observation."""
-        c = self.centers()
-        valid = self.point_valid()
-        last = np.full(self.num_points, -1, np.int64)
-        live = np.nonzero(self.obs_valid)[0]
-        np.maximum.at(last, self.obs_pt[live], live)
-        with open(path, "w") as f:
-            for j in np.nonzero(valid)[0]:
-                if last[j] >= 0 and np.linalg.norm(
-                        self.points[j] - c[self.obs_cam[last[j]]]) > max_distance:
-                    continue
-                X = self.points[j]
-                f.write(f"v {X[0]:.15f} {X[1]:.15f} {X[2]:.15f}\n")
+        with span("stage:write.obj"):
+            c = self.centers()
+            valid = self.point_valid()
+            last = np.full(self.num_points, -1, np.int64)
+            live = np.nonzero(self.obs_valid)[0]
+            np.maximum.at(last, self.obs_pt[live], live)
+            with open(path, "w") as f:
+                for j in np.nonzero(valid)[0]:
+                    if last[j] >= 0 and np.linalg.norm(
+                            self.points[j] - c[self.obs_cam[last[j]]]) > max_distance:
+                        continue
+                    X = self.points[j]
+                    f.write(f"v {X[0]:.15f} {X[1]:.15f} {X[2]:.15f}\n")
 
     def write_camera_centers_obj(self, path: str):
-        with open(path, "w") as f:
+        with span("stage:write.obj"), open(path, "w") as f:
             for ctr in self.centers():
                 f.write(f"v {ctr[0]:.15f} {ctr[1]:.15f} {ctr[2]:.15f}\n")
 
     def write_colmap(self, sparse_dir: str, width: int, height: int):
         from ..io.colmap import write_colmap_text
 
-        write_colmap_text(self, sparse_dir, width, height)
+        with span("stage:write.colmap"):
+            write_colmap_text(self, sparse_dir, width, height)

@@ -15,6 +15,12 @@ loop runs while any pair is active and masks the updates of pairs that
 have finished (ROADMAP C6). With `devices` (a mesh's), the pairs split
 over those devices after every draw, which is made for the whole batch
 first, so a sharded run draws what a single-device run draws.
+
+Under a profiler (`tracing`) each adaptive round is a `call:ransac.round`
+span holding the leaves `stage:ransac.sample`, `.solve`, `.score` and
+`.stop` (the stop test and its read-back, where the host waits); the
+static engine's phases take the same leaves, and the common tail is
+`stage:ransac.refit` then `stage:ransac.polish`.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from ..geometry.essential import decompose_spherical_essential, make_spherical_e
 from ..geometry.so3 import so3_exp
 from ..optim.lm import levenberg_marquardt
 from ..solvers.spherical import solve_spherical_3pt
+from ..tracing import span
 from .engine import best_model, join_rows, msac_score, sample_tuples, split_rows
 
 # candidates × correspondences of one scoring block of the static engine
@@ -52,6 +59,7 @@ class SphericalRansacResult(NamedTuple):
     score: torch.Tensor        # (B,)
     inlier_mask: torch.Tensor  # (B, N)
     num_inliers: torch.Tensor  # (B,)
+    rounds: torch.Tensor       # (B,) adaptive rounds each pair ran (0: the static engine)
 
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -99,39 +107,44 @@ def _keep_better(part: _Part, E_r, sc, inl, where=None) -> _Part:
 
 
 def _refit_and_polish(gen, parts, home, sq_thresh, inward: bool, final_least_squares: bool,
-                      refine_iters: int, lo_rounds: int, nonminimal_size: int,
+                      refine_iters: int, lo_rounds: int, nonminimal_size: int, rounds,
                       devices=None) -> SphericalRansacResult:
     """The engines' common tail: `lo_rounds` non-minimal refits from inlier
     samples (RansacLib's LO step), the decomposition, and the final least
     squares, each kept only where it lowers the MSAC score. The samples are
     drawn for every pair at once, on the generator's device, then split
     over the parts; the result is joined on `home`, the batch's device."""
-    for _ in range(lo_rounds):
-        inliers = join_rows([q.inliers for q in parts], home)
-        nm_idx = split_rows(sample_tuples(gen, inliers, 1, nonminimal_size)[:, 0], devices)
-        new = []
-        for q, idx in zip(parts, nm_idx):                              # idx (B, n)
-            E_nm, valid_nm = solve_spherical_3pt(_gather_rows(q.u, idx), _gather_rows(q.v, idx))
-            new.append(_keep_better(q, *_score_candidates(E_nm, valid_nm, q.u, q.v, sq_thresh,
-                                                          q.mask)))
-        parts = new
+    with span("stage:ransac.refit"):
+        for _ in range(lo_rounds):
+            inliers = join_rows([q.inliers for q in parts], home)
+            nm_idx = split_rows(sample_tuples(gen, inliers, 1, nonminimal_size)[:, 0], devices)
+            new = []
+            for q, idx in zip(parts, nm_idx):                              # idx (B, n)
+                E_nm, valid_nm = solve_spherical_3pt(_gather_rows(q.u, idx),
+                                                     _gather_rows(q.v, idx))
+                new.append(_keep_better(q, *_score_candidates(E_nm, valid_nm, q.u, q.v,
+                                                              sq_thresh, q.mask)))
+            parts = new
 
-    outs = []
-    for q in parts:
-        E_best, score, inliers = q.E, q.score, q.inliers
-        r, t = decompose_spherical_essential(E_best, inward=inward)
-        if final_least_squares:
-            r_ref = _refine_rotation(r, q.u, q.v, inliers.to(q.u.dtype), inward, refine_iters)
-            E_ref = make_spherical_essential(so3_exp(r_ref), inward=inward)
-            errs_ref = sampson_error(E_ref, q.u, q.v)
-            score_ref = msac_score(errs_ref, sq_thresh, q.mask)
-            better = score_ref < score
-            E_best = torch.where(better[:, None, None], E_ref, E_best)
-            score = torch.where(better, score_ref, score)
-            inliers = torch.where(better[:, None], (errs_ref < sq_thresh) & q.mask, inliers)
+    with span("stage:ransac.polish"):
+        outs = []
+        for q in parts:
+            E_best, score, inliers = q.E, q.score, q.inliers
             r, t = decompose_spherical_essential(E_best, inward=inward)
-        outs.append((E_best, r, t, score, inliers, inliers.sum(-1)))
-    return SphericalRansacResult(*(join_rows(list(x), home) for x in zip(*outs)))
+            if final_least_squares:
+                r_ref = _refine_rotation(r, q.u, q.v, inliers.to(q.u.dtype), inward,
+                                         refine_iters)
+                E_ref = make_spherical_essential(so3_exp(r_ref), inward=inward)
+                errs_ref = sampson_error(E_ref, q.u, q.v)
+                score_ref = msac_score(errs_ref, sq_thresh, q.mask)
+                better = score_ref < score
+                E_best = torch.where(better[:, None, None], E_ref, E_best)
+                score = torch.where(better, score_ref, score)
+                inliers = torch.where(better[:, None], (errs_ref < sq_thresh) & q.mask, inliers)
+                r, t = decompose_spherical_essential(E_best, inward=inward)
+            outs.append((E_best, r, t, score, inliers, inliers.sum(-1)))
+        return SphericalRansacResult(*(join_rows(list(x), home) for x in zip(*outs)),
+                                     rounds=rounds)
 
 
 def spherical_ransac(
@@ -153,7 +166,8 @@ def spherical_ransac(
     sq_thresh is the squared Sampson threshold in normalized units
     ((px·K⁻¹₀₀)²). With `devices`, the pairs are split over those devices
     after the draws (`parallel.sharded_pairwise_ransac`)."""
-    triples = sample_tuples(gen, mask, num_hypotheses, 3)           # (B, M, 3)
+    with span("stage:ransac.sample"):
+        triples = sample_tuples(gen, mask, num_hypotheses, 3)       # (B, M, 3)
     return _spherical_ransac_body(gen, triples, u, v, mask, sq_thresh, inward,
                                   final_least_squares, lo_rounds, nonminimal_size, refine_iters,
                                   devices)
@@ -168,18 +182,21 @@ def _spherical_ransac_body(gen, triples, u, v, mask, sq_thresh, inward, final_le
     parts = []
     for uu, vv, mm, tr in zip(*(split_rows(x, devices) for x in (u, v, mask, triples))):
         B, N, _ = uu.shape
-        Es, valid = solve_spherical_3pt(_gather_rows(uu, tr), _gather_rows(vv, tr))
-        Es, valid = Es.reshape(B, -1, 3, 3), valid.reshape(B, -1)  # (B, 4M, ...)
+        with span("stage:ransac.solve"):
+            Es, valid = solve_spherical_3pt(_gather_rows(uu, tr), _gather_rows(vv, tr))
+            Es, valid = Es.reshape(B, -1, 3, 3), valid.reshape(B, -1)  # (B, 4M, ...)
         block = max(1, _SCORE_BLOCK_ELEMS // max(B * N, 1))
         part = None
-        for s in range(0, Es.shape[1], block):
-            E_r, sc, inl = _score_candidates(Es[:, s:s + block], valid[:, s:s + block], uu, vv,
-                                             sq_thresh, mm)
-            part = (_Part(uu, vv, mm, E_r, sc, inl) if part is None
-                    else _keep_better(part, E_r, sc, inl))
+        with span("stage:ransac.score"):
+            for s in range(0, Es.shape[1], block):
+                E_r, sc, inl = _score_candidates(Es[:, s:s + block], valid[:, s:s + block], uu,
+                                                 vv, sq_thresh, mm)
+                part = (_Part(uu, vv, mm, E_r, sc, inl) if part is None
+                        else _keep_better(part, E_r, sc, inl))
         parts.append(part)
+    no_rounds = torch.zeros(u.shape[0], dtype=torch.int64, device=u.device)
     return _refit_and_polish(gen, parts, u.device, sq_thresh, inward, final_least_squares,
-                             refine_iters, lo_rounds, nonminimal_size, devices)
+                             refine_iters, lo_rounds, nonminimal_size, no_rounds, devices)
 
 
 def spherical_ransac_adaptive(
@@ -230,18 +247,29 @@ def spherical_ransac_adaptive(
         n_valid, done_h, rnd = c
         return (rnd < max_rounds) & ((rnd < min_rounds) | (done_h < hyps_needed(q, n_valid)))
 
-    active = [still_running(q, c) for q, c in zip(parts, counters)]
-    while bool(join_rows(active, home).any()):
-        triples = split_rows(sample_tuples(gen, mask, round_size, 3), devices)   # (B, R, 3)
-        for i, (q, c, act, tr) in enumerate(zip(parts, counters, active, triples)):
-            B = q.u.shape[0]
-            Es, valid = solve_spherical_3pt(_gather_rows(q.u, tr), _gather_rows(q.v, tr))
-            E_r, sc, inl = _score_candidates(Es.reshape(B, -1, 3, 3), valid.reshape(B, -1),
-                                             q.u, q.v, sq_thresh, q.mask)
-            parts[i] = _keep_better(q, E_r, sc, inl, where=act)
-            step = act.to(torch.int64)
-            counters[i] = (c[0], c[1] + step * round_size, c[2] + step)
-        active = [still_running(q, c) for q, c in zip(parts, counters)]
+    def stop_test():
+        with span("stage:ransac.stop"):
+            act = [still_running(q, c) for q, c in zip(parts, counters)]
+            return act, bool(join_rows(act, home).any())
+
+    active, running = stop_test()
+    while running:
+        with span("call:ransac.round"):
+            with span("stage:ransac.sample"):
+                triples = split_rows(sample_tuples(gen, mask, round_size, 3), devices)  # (B, R, 3)
+            for i, (q, c, act, tr) in enumerate(zip(parts, counters, active, triples)):
+                B = q.u.shape[0]
+                with span("stage:ransac.solve"):
+                    Es, valid = solve_spherical_3pt(_gather_rows(q.u, tr), _gather_rows(q.v, tr))
+                with span("stage:ransac.score"):
+                    E_r, sc, inl = _score_candidates(Es.reshape(B, -1, 3, 3),
+                                                     valid.reshape(B, -1), q.u, q.v, sq_thresh,
+                                                     q.mask)
+                    parts[i] = _keep_better(q, E_r, sc, inl, where=act)
+                    step = act.to(torch.int64)
+                    counters[i] = (c[0], c[1] + step * round_size, c[2] + step)
+            active, running = stop_test()
 
     return _refit_and_polish(gen, parts, u.device, sq_thresh, inward, final_least_squares,
-                             refine_iters, lo_rounds, nonminimal_size, devices)
+                             refine_iters, lo_rounds, nonminimal_size,
+                             join_rows([c[2] for c in counters], home), devices)

@@ -287,7 +287,9 @@ def test_driver_options_run(option, tmp_path, loop_render):
 
 def test_profile_dir_writes_trace(tmp_path):
     """`cfg.profile_dir` traces the driver with torch.profiler: a Chrome
-    trace whose CPU events cover the frontend through the writers."""
+    trace whose CPU events cover the frontend through the writers, with
+    each stage of `stages.jsonl` as its bare `stage:<name>` span and the
+    port's own spans inside."""
     focal, w, h = 80.0, 160, 120
     _, _, gray, color = render_capture(num_frames=6, arc=0.3, focal=focal, width=w, height=h,
                                        wave_freq=12.5)
@@ -305,3 +307,8 @@ def test_profile_dir_writes_trace(tmp_path):
     names = {e.get("name", "") for e in events}
     assert len(events) > 100
     assert any(n.startswith("aten::") for n in names)
+    stages = [json.loads(line)["stage"] for line in open(tmp_path / "out" / "stages.jsonl")]
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {f"stage:{s}" for s in stages} <= spans, sorted(spans)
+    assert {"call:ransac.round", "stage:ransac.solve", "call:ba.iteration",
+            "stage:write.colmap"} <= spans
