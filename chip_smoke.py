@@ -5,9 +5,10 @@
 Phases (each prints one line; any failure raises and the exit code is
 non-zero):
   1. device  — require CUDA, TF32 off, print the card's name and power limit;
-  2. build   — compile the two-NN matcher's two sources with nvcc, both at
-               once: csrc/two_nn_wgmma.cu (bf16, the main path's) and
-               csrc/two_nn.cu (float32 FMAs, the exact checker);
+  2. build   — compile every CUDA source of the port with nvcc, all at
+               once: csrc/two_nn_wgmma.cu (bf16, the main path's matcher),
+               csrc/two_nn.cu (float32 FMAs, the matcher's exact checker) and
+               csrc/spherical_polish.cu (RANSAC's final rotation polish);
   3. kernel  — both kernels against their plain PyTorch version on the card
                at 32 pairs × 1024 (the main path's chunk) and 32 pairs ×
                4000 (the default keypoint count), and on a ragged 8 × 1000
@@ -20,11 +21,23 @@ non-zero):
                bias → torch.topk) and its tensor-core bound, and the float32
                kernel's time beside the same yardstick in float32 (TF32 off)
                and its FP32 bound;
+  3a. polish — the final-polish kernel against the plain PyTorch path on
+               the card at the main path's chunk (128 pairs × 1024 matches,
+               30–70% outliers, float64), `polish_agreement`: LM iterations
+               equal on ≥ 99% of pairs, the rotations of those pairs within
+               1e-9 relative, the accepted flags equal but at ties, the
+               inlier rows equal off the threshold, the kept scores and
+               models within 1e-9, model and score untouched where not
+               accepted; the kernel's time beside the plain path's and its
+               FP64 bound (`polish_flops`), and its launches;
   4. main    — the calibrated driver on a rendered 48-frame 640×480 capture
                (focal 512, 1024 keypoints, exhaustive matching of 1128
                pairs); ATE < 0.05, median relative rotation error < 2°,
-               output files present, one matcher launch per 32-pair chunk.
-               The pairwise stage's seconds and peak device memory.
+               output files present, one matcher launch per 32-pair chunk
+               and one polish launch per 128-pair RANSAC chunk (9). The
+               pairwise stage's seconds and peak device memory. Every phase
+               that runs pairwise RANSAC below holds the polish to one
+               launch a part of each chunk (`polish_parts`) the same way.
   4a. determinism — ROADMAP C26: the main phase's frames detected twice
                (1024 keypoints) and its rotation graph averaged twice by the
                dense solver and twice by the PCG, each pair bit for bit.
@@ -150,8 +163,9 @@ non-zero):
                1e-3 of each other on both, and within 1% of 1.0 on the
                ground truth's (the measured edges of 1.3° and 2° come out
                3–6% short, so the measured graph's optimum is ~1.036).
-Then one JSON line describing the kernel (launches per phase, times and
-bound at both shapes), the card's
+Then one JSON line describing the kernels: the two matchers (launches per
+phase, times and bound at both shapes) and the polish (its launches on the
+main path and by phase, and the polish phase's times and bound), the card's
 name and power limit, and last the result line {"ok": true, "device":
 {...}}. The script imports nothing of JAX.
 """
@@ -184,8 +198,18 @@ def sync(device):
 
 
 def reset_counts(two_nn):
+    """Zero the matcher's launch counts and the final polish's."""
+    from sphericalsfm_tpu_torch.ransac.polish_kernel import spherical_polish
+
     two_nn.launches = 0
     two_nn.route_launches.update(dict.fromkeys(two_nn.route_launches, 0))
+    spherical_polish.launches = 0
+
+
+def polish_launches() -> int:
+    from sphericalsfm_tpu_torch.ransac.polish_kernel import spherical_polish
+
+    return spherical_polish.launches
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -224,6 +248,7 @@ KERNEL_CASES = (("32x1024", 32, 1024, 0.0), ("32x4000", 32, 4000, 0.0),
 TOLERANCES = ((torch.bfloat16, 1e-4, 2e-4), (torch.float32, 1e-5, 1e-5))
 H100_BF16_FLOPS = 989e12   # dense, 700 W (NVIDIA's data sheet)
 H100_FP32_FLOPS = 67e12    # outside the tensor cores, 700 W (the same sheet)
+H100_FP64_FLOPS = 33.5e12  # FP64 outside the tensor cores, 700 W (the same sheet)
 H100_HBM_BYTES = 3.35e12
 
 
@@ -355,6 +380,156 @@ def time_kernel(two_nn, reference, args):
     return out
 
 
+# Floating-point operations a match of the final polish (csrc/spherical_polish.cu),
+# counted from its arithmetic; a dual number is a value and 3 tangents, so a
+# dual × scalar is 4 products, a dual sum 4 sums, a dual product 10 and a
+# dual quotient 10 operations.
+POLISH_JACOBIAN_FLOPS = 213  # E u and Eᵀv's first two (5 rows × (3 dual × scalar + 2 dual
+#                              sums) = 100), vᵀEu (20), the denominator (4 dual squares
+#                              + 3 dual sums = 52), d²/den (20); 3 weights and 9
+#                              products summed into JᵀWJ and JᵀWs (21)
+POLISH_COST_FLOPS = 42       # the same in values (39) and w·s² summed (3)
+POLISH_RESCORE_FLOPS = 40    # the Sampson error (39) and the capped sum (1)
+
+
+def polish_flops(iterations, N: int) -> float:
+    """Operations of one polish call: for each pair, its first cost, then
+    per LM iteration a Jacobian evaluation and a cost, then the rescoring,
+    each over its N matches. `iterations` holds each pair's count."""
+    it = float(iterations.sum())
+    pairs = iterations.numel()
+    return N * (POLISH_COST_FLOPS * (pairs + it) + POLISH_JACOBIAN_FLOPS * it
+                + POLISH_RESCORE_FLOPS * pairs)
+
+
+def polish_inputs(B, N, dtype=torch.float64, inward=False, seed=0, device="cuda",
+                  rotation_deg=-1.0, outliers=(0.3, 0.7)):
+    """The final polish's inputs at B pairs × N matches: rays of random
+    spherical problems (1 px noise at f = 600; rotations uniform in [0, π)
+    by default) with a share of outliers drawn per pair from `outliers`,
+    through the adaptive engine on `device` without its polish. Returns
+    (r0, u, v, mask, inliers, E, score, sq_thresh)."""
+    from sphericalsfm_tpu_torch.eval.synthetic import make_random_problems
+    from sphericalsfm_tpu_torch.geometry.essential import decompose_spherical_essential
+    from sphericalsfm_tpu_torch.ransac.spherical import spherical_ransac_adaptive
+
+    prob = make_random_problems(torch.Generator().manual_seed(seed), B, N, inward=inward,
+                                rotation_deg=rotation_deg, point_noise=1.0 / 600, device="cpu")
+    rng = np.random.default_rng(seed)
+    out = rng.uniform(size=(B, N)) < rng.uniform(*outliers, size=(B, 1))
+    v = prob.v.numpy().copy()
+    v[..., :2] = np.where(out[..., None], rng.normal(size=(B, N, 2)) * 0.5, v[..., :2])
+    u, v = (torch.as_tensor(x, dtype=dtype, device=device) for x in (prob.u.numpy(), v))
+    mask = prob.valid.to(device)
+    sq = (2.0 / 600) ** 2
+    res = spherical_ransac_adaptive(torch.Generator(device=device).manual_seed(seed + 1), u, v,
+                                    mask, sq, max_rounds=79, inward=inward,
+                                    final_least_squares=False)
+    r0, _ = decompose_spherical_essential(res.E, inward=inward)
+    return r0.contiguous(), u, v, mask, res.inlier_mask, res.E, res.score, sq
+
+
+def polish_agreement(args, k, p, inward=False, min_equal=0.99):
+    """The kernel's polish `k` against the plain path's `p` on the float64
+    inputs `args` (polish_inputs' tuple): the measures and the failures
+    among them. Both paths run the same arithmetic summed in another order:
+    LM iterations equal on ≥ `min_equal` of pairs (an accept test flips
+    only at rounding level, near a minimum), rotations with equal iterations
+    within 1e-9 relative; the accepted flags equal outside ties (the
+    polished score within 1e-9 relative of the RANSAC score, or within
+    1e-12 of one capped match: a pair whose few valid matches fit exactly
+    scores ~1e-32, rounding alone); the inlier rows of pairs with equal
+    flags equal outside matches within 1e-9 relative of the threshold; the
+    scores (1e-9 relative) and models (1e-9) of pairs both kept with equal
+    iterations; and the input model and score left as they were where the
+    kernel did not accept."""
+    from sphericalsfm_tpu_torch.geometry.essential import make_spherical_essential
+    from sphericalsfm_tpu_torch.geometry.so3 import so3_exp
+    from sphericalsfm_tpu_torch.ransac.engine import msac_score
+    from sphericalsfm_tpu_torch.ransac.spherical import sampson_error
+
+    r0, u, v, mask, inliers, E, score, sq = args
+    same = k.iterations == p.iterations
+    rel = (torch.linalg.norm(k.r - p.r, dim=-1)
+           / torch.linalg.norm(p.r, dim=-1).clamp(min=1e-300))
+    errs = sampson_error(make_spherical_essential(so3_exp(p.r), inward=inward), u, v)
+    tie = (msac_score(errs, sq, mask) - score).abs() <= 1e-9 * score.abs() + 1e-12 * sq
+    rows = k.accepted == p.accepted
+    near = (errs - sq).abs() <= 1e-9 * sq
+    kept = k.accepted & p.accepted & same
+    score_ok = (k.score - p.score).abs() <= 1e-9 * p.score.abs() + 1e-12 * sq
+    E_err = (k.E - p.E).abs().flatten(1).amax(-1)
+    left = ~k.accepted
+    info = dict(iters_equal_share=float(same.double().mean()),
+                r_rel_max_equal_iters=float(rel[same].max()) if same.any() else None,
+                r_rel_max=float(rel.max()),
+                accepted_share=float(k.accepted.double().mean()),
+                accepted_ties=int(tie.sum()),
+                accepted_differ=int((k.accepted != p.accepted)[~tie].sum()),
+                inliers_differ=int(((k.inliers != p.inliers) & ~near)[rows].sum()),
+                kept_both=int(kept.sum()),
+                kept_score_differ=int((~score_ok)[kept].sum()),
+                kept_E_max_abs_err=float(E_err[kept].max()) if kept.any() else 0.0,
+                unaccepted_changed=int(((k.E != E).flatten(1).any(-1)
+                                        | (k.score != score))[left].sum()))
+    failures = []
+    if info["iters_equal_share"] < min_equal:
+        failures.append(f"LM iterations equal on {info['iters_equal_share']:.3f} of pairs")
+    if info["r_rel_max_equal_iters"] is None or not info["r_rel_max_equal_iters"] <= 1e-9:
+        failures.append(f"rotations differ by {info['r_rel_max_equal_iters']} relative")
+    if info["accepted_differ"]:
+        failures.append(f"accepted flags differ outside ties on {info['accepted_differ']} pairs")
+    if info["inliers_differ"]:
+        failures.append(f"{info['inliers_differ']} inlier flags differ off the threshold")
+    if info["kept_score_differ"]:
+        failures.append(f"scores of {info['kept_score_differ']} kept pairs differ")
+    if not info["kept_E_max_abs_err"] <= 1e-9:
+        failures.append(f"kept models differ by {info['kept_E_max_abs_err']}")
+    if info["unaccepted_changed"]:
+        failures.append(f"{info['unaccepted_changed']} pairs not accepted changed model or score")
+    return info, failures
+
+
+def run_polish_phase(device="cuda", B=128, N=1024):
+    """The final-polish kernel against the plain path on the card at the
+    main path's chunk: agreement (`polish_agreement`), times and the FP64
+    bound. Returns the phase's line."""
+    from sphericalsfm_tpu_torch.ransac import spherical as sph
+    from sphericalsfm_tpu_torch.ransac.polish_kernel import spherical_polish
+
+    args = polish_inputs(B, N, device=device)
+    before = spherical_polish.launches
+    k = sph._polish(*args, False, 25)
+    p = sph._polish_plain(*args, False, 25)
+    sync(device)
+    launches = spherical_polish.launches - before
+    agreement, failures = polish_agreement(args, k, p)
+    info = dict(pairs=B, matches=N, dtype="float64", launches=launches,
+                iters_mean=float(k.iterations.double().mean()),
+                plain_iters_mean=float(p.iterations.double().mean()), **agreement)
+    info["ms"] = cuda_ms(lambda: spherical_polish(*args, False, 25))
+    info["plain_ms"] = cuda_ms(lambda: sph._polish_plain(*args, False, 25), reps=3, warmup=1)
+    flops = polish_flops(k.iterations, N)
+    info.update(flops=flops, bound_ms=flops / H100_FP64_FLOPS * 1e3, bound_by="operations")
+    info["share_of_bound"] = info["bound_ms"] / info["ms"]
+    phase("polish", **info, failures=failures)
+    if launches != 1:
+        failures.append(f"{launches} launches for one call")
+    if failures:
+        raise RuntimeError("polish phase: " + "; ".join(failures))
+    return info
+
+
+def polish_parts(pairs: int, chunk: int, devices: int = 0) -> int:
+    """Polish launches of one pairwise RANSAC sweep: one a part of each
+    chunk, a chunk grown with the mesh and split over its shards as
+    `estimate_pairwise` grows and splits it."""
+    nd = max(devices, 1)
+    if devices:
+        chunk = -(-chunk // nd) * nd * max(1, nd // 8)
+    return sum(min(nd, pairs - s) for s in range(0, pairs, chunk))
+
+
 class DriverProbe:
     """Wraps the calibrated driver's `estimate_pairwise` (its seconds and
     peak device memory, from a reset of the peak counter) and
@@ -427,6 +602,7 @@ def run_main_path(two_nn, device="cuda", F=48, W=640, H=480, static=False, phase
     pairs = F * (F - 1) // 2
     # one launch per chunk, or per shard and chunk on a mesh
     chunks = sum(min(max(devices, 1), pairs - s) for s in range(0, pairs, CHUNK))
+    polish_expected = polish_parts(pairs, cfg.ransac.pair_chunk, devices)
     with tempfile.TemporaryDirectory() as out, DriverProbe(device) as probe:
         reset_counts(two_nn)
         t0 = time.perf_counter()
@@ -436,6 +612,7 @@ def run_main_path(two_nn, device="cuda", F=48, W=640, H=480, static=False, phase
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, routes = two_nn.launches, dict(two_nn.route_launches)
+        polish = polish_launches()
         with open(os.path.join(out, "poses.txt")) as f:
             poses_txt = f.read()
         missing = [f for f in ("poses.txt", "points.obj", "cameras.obj", "summary.json",
@@ -455,12 +632,15 @@ def run_main_path(two_nn, device="cuda", F=48, W=640, H=480, static=False, phase
     ba = {k: v for s in stages for k, v in s.items() if k.endswith("_final_cost")
           or k.endswith("_initial_cost") or k.endswith("_iterations")}
     pw = {k: v for k, v in probe.items() if k.startswith("pairwise")}
+    counts = [s for s in stages if s["stage"] == "estimate_pairwise"][-1]
     info = dict(frames=F, size=f"{W}x{H}", pairs=pairs,
                 engine="static" if static else "adaptive",
                 num_hypotheses=cfg.ransac.num_hypotheses, wall_s=round(wall, 3),
                 render_s=round(render_s, 3), ate=err, median_rel_rot_deg=float(np.median(rel)),
                 points=int(m.point_valid().sum()), summary=summary, launches=launches,
-                route_launches=routes, expected_launches=chunks,
+                route_launches=routes, expected_launches=chunks, polish_launches=polish,
+                expected_polish_launches=polish_expected,
+                **{k: counts.get(k) for k in ("chunks", "polish_iters", "polish_accept_pct")},
                 stage_s={s["stage"]: s["seconds"] for s in stages}, ba=ba, **pw)
     phase(phase_name or ("static_ransac" if static else "main"), **info)
     if missing:
@@ -471,9 +651,12 @@ def run_main_path(two_nn, device="cuda", F=48, W=640, H=480, static=False, phase
         raise AssertionError(f"median relative rotation error {np.median(rel)} >= 2 deg")
     if launches != chunks or routes["wgmma_bf16"] != chunks:
         raise AssertionError(f"matcher launched {routes}, expected {chunks} bf16 launches")
+    if polish != polish_expected:
+        raise AssertionError(f"polish launched {polish} times, expected {polish_expected}")
     # the calibrated run's output is the stereo-panorama workflow's input
     return launches, dict(poses_txt=poses_txt, gray=gray, color=color,
                           intrinsics=(focal, W / 2.0, H / 2.0), launches=launches,
+                          polish_launches=polish,
                           rot0=probe["rot0"], graph=probe["graph"], pairwise=pw)
 
 
@@ -597,6 +780,9 @@ def sequence_failures(rep, spec, out):
     if rep["launches"] != rep["expected_launches"]:
         failures.append(f"matcher launched {rep['launches']} times, expected "
                         f"{rep['expected_launches']}")
+    if rep["polish_launches"] != rep["expected_polish_launches"]:
+        failures.append(f"polish launched {rep['polish_launches']} times, expected "
+                        f"{rep['expected_polish_launches']}")
     return failures
 
 
@@ -604,7 +790,7 @@ def run_uncalibrated_phase(two_nn, device="cuda"):
     """Four evaluation-suite sequences through suite.run_sequence (render,
     frontend, injected outliers, run_uncalibrated, evaluator), inward_out20
     the inward mode's; raises after all of them ran if any missed a bound.
-    Returns the phase's matcher launches."""
+    Returns the phase's matcher and polish launches."""
     from sphericalsfm_tpu_torch.eval import suite
     from sphericalsfm_tpu_torch.pipeline.frontend import window_pairs
 
@@ -616,22 +802,27 @@ def run_uncalibrated_phase(two_nn, device="cuda"):
             cfg = suite.sequence_config(specs[name])
             pairs = len(window_pairs(specs[name]["frames"], cfg.frontend.adjacent_window,
                                      cfg.graph.num_frames_begin, cfg.graph.num_frames_end)[0])
+            before = polish_launches()
             rep = suite.run_sequence(specs[name], out_root, device)
             rep["expected_launches"] = math.ceil(pairs / CHUNK)
+            rep["polish_launches"] = polish_launches() - before
+            rep["expected_polish_launches"] = polish_parts(pairs, cfg.ransac.pair_chunk)
             failures = sequence_failures(rep, specs[name], os.path.join(out_root, name))
             phase("uncalibrated", **rep, failures=failures)
             if failures:
                 failed[name] = failures
-    launches = two_nn.launches
+    launches, polish = two_nn.launches, polish_launches()
     if failed:
         raise AssertionError(f"uncalibrated sequences failed: {failed}")
-    return launches
+    return launches, polish
 
 
 def run_modes_phase(two_nn, device="cuda", F=24, W=320, H=240, focal=260.0):
     """Five-point, six-point and COLMAP-database runs of the uncalibrated
     driver on one small render, held to the bounds of the JAX package's
-    driver tests. Returns the phase's matcher launches."""
+    driver tests. Returns the phase's matcher and polish launches: the
+    five-point mode polishes with the generic LM, the others with the
+    kernel, once a chunk of the `estimate_pairwise` record."""
     from sphericalsfm_tpu_torch.config import PipelineConfig
     from sphericalsfm_tpu_torch.eval.render import render_capture
     from sphericalsfm_tpu_torch.io.colmap import ColmapDatabase, write_database
@@ -685,11 +876,11 @@ def run_modes_phase(two_nn, device="cuda", F=24, W=320, H=240, focal=260.0):
         return out
 
     failed = {}
-    launches = 0
+    launches = polish = 0
     for mode, bound in (("five_point", 0.15), ("six_point", 0.15), ("colmap_db", 0.05)):
         cfg = config(small=mode != "colmap_db")
         with tempfile.TemporaryDirectory() as out:
-            two_nn.launches = 0
+            reset_counts(two_nn)
             eig_calls.clear()
             five_point.eig_real_batched = counted_eig
             t0 = time.perf_counter()
@@ -710,6 +901,9 @@ def run_modes_phase(two_nn, device="cuda", F=24, W=320, H=240, focal=260.0):
                            for f in ("calib.txt", "sparse/final/cameras.txt"))
         err = abs(est - focal) / focal
         fs = [s for s in stages if s["stage"] == "focal_search"][-1]
+        pw = [s for s in stages if s["stage"] == "estimate_pairwise"][-1]
+        mode_polish = polish_launches()
+        polish_expected = 0 if mode == "five_point" else pw["chunks"]
         failures = []
         if not err < bound:
             failures.append(f"focal {est} not within {bound:.0%} of {focal}")
@@ -721,20 +915,24 @@ def run_modes_phase(two_nn, device="cuda", F=24, W=320, H=240, focal=260.0):
             failures.append("matcher never launched")
         if mode == "five_point" and not eig_calls:
             failures.append("the five-point solver never took eig_real_batched")
+        if mode_polish != polish_expected:
+            failures.append(f"polish launched {mode_polish} times, expected {polish_expected}")
         launches += two_nn.launches
+        polish += mode_polish
         extra = dict(eig_real_batched_calls=len(eig_calls),
                      eig_matrices=sum(n for n, _ in eig_calls),
                      eig_real_batched_s=round(sum(s for _, s in eig_calls), 3),
                      wall_s_on_torch_linalg_eig="34-44") if mode == "five_point" else {}
         phase("modes", mode=mode, frames=F, size=f"{W}x{H}", focal_true=focal,
               focal_est=est, focal_rel_err=err, bound=bound, wall_s=round(wall, 3), **extra,
-              launches=two_nn.launches, points=int(m.point_valid().sum()),
+              launches=two_nn.launches, polish_launches=mode_polish,
+              expected_polish_launches=polish_expected, points=int(m.point_valid().sum()),
               stage_s={s["stage"]: s["seconds"] for s in stages}, failures=failures)
         if failures:
             failed[mode] = failures
     if failed:
         raise AssertionError(f"modes failed: {failed}")
-    return launches
+    return launches, polish
 
 
 def general_problems(seed, batch, n_corr, device="cuda"):
@@ -1287,8 +1485,8 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
     retriangulation and BA of the main phase's capture, the ring matcher on
     the float32 kernel against match_pairs_compact and the kernel's plain
     version, and the ba_scale scene through distributed_bundle_adjust.
-    Returns the bf16 launches of the sharded matching and the f32 launches
-    of the ring."""
+    Returns the bf16 launches of the sharded matching, the f32 launches of
+    the ring and the polish launches of the sharded pairwise RANSAC."""
     import copy
 
     from sphericalsfm_tpu_torch.device import generator
@@ -1349,10 +1547,18 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
                  min_num_inliers=cfg.ransac.min_num_inliers,
                  num_hypotheses=cfg.ransac.num_hypotheses, chunk_size=cfg.ransac.pair_chunk,
                  round_size=cfg.ransac.round_size, confidence=cfg.ransac.confidence)
+    reset_counts(two_nn)
     pw0, secs["pairwise_single_s"] = timed_once(lambda: estimate_pairwise(
         generator(dev, 0), feats0.xy, pi, pj, *m0, intr, device=dev, **pw_kw), dev)
+    single_polish = polish_launches()
+    reset_counts(two_nn)
     pw1, secs["pairwise_mesh_s"] = timed_once(lambda: estimate_pairwise(
         generator(dev, 0), feats0.xy, pi, pj, *m0, intr, mesh=mesh, **pw_kw), dev)
+    mesh_polish = polish_launches()
+    polish_expected = (polish_parts(len(pi), cfg.ransac.pair_chunk),
+                       polish_parts(len(pi), cfg.ransac.pair_chunk, shards))
+    out.update(single_polish_launches=single_polish, mesh_polish_launches=mesh_polish,
+               expected_polish_launches=polish_expected)
     rot_diff = np.rad2deg(np.linalg.norm(pw0.r - pw1.r, axis=-1))
     out.update(pairwise_keep_equal=bool((pw0.keep == pw1.keep).all()),
                pairwise_max_inlier_diff=int(np.abs(pw0.num_inliers - pw1.num_inliers).max()),
@@ -1463,6 +1669,9 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
         failures.append(f"sharded matching launched {mesh_routes}, expected {expected} bf16")
     if single_launches != chunks:
         failures.append(f"single-device matching launched {single_launches}, expected {chunks}")
+    if (single_polish, mesh_polish) != polish_expected:
+        failures.append(f"polish launched {single_polish} (single) and {mesh_polish} (mesh) "
+                        f"times, expected {polish_expected}")
     if not (out["pairwise_keep_equal"] and out["pairwise_max_inlier_diff"] <= 3
             and out["pairwise_max_rot_diff_deg"] < 0.1):
         failures.append("sharded pairwise outside the JAX test's bounds")
@@ -1485,7 +1694,7 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
     if visible >= 2:
         n = 2 if visible < 4 else 4
         run_main_path(two_nn, device=device, devices=n, phase_name="driver_on_mesh")
-    return mesh_launches, ring_launches
+    return mesh_launches, ring_launches, mesh_polish
 
 
 def run_multihost_phase(device="cuda", shards=2, timeout=300):
@@ -1614,6 +1823,7 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
     pairs = len(window_pairs(F, cfg.frontend.adjacent_window, cfg.graph.num_frames_begin,
                              cfg.graph.num_frames_end)[0])
     chunks = math.ceil(pairs / CHUNK)
+    polish_expected = polish_parts(pairs, cfg.ransac.pair_chunk)
 
     graph = {}
     real = driver.optimize_rotations
@@ -1637,6 +1847,7 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
         finally:
             driver.optimize_rotations = real
         launches, routes = two_nn.launches, dict(two_nn.route_launches)
+        polish = polish_launches()
         ba_solves = dict(ba.bundle_adjust.solves)
         pg_solves = dict(pose_graph.optimize_rotations.solves)
         trace = os.path.join(cfg.profile_dir, "trace.json")
@@ -1691,7 +1902,9 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
     phase("long_capture", frames=F, size=f"{W}x{H}", pairs=pairs, render_s=round(render_s, 3),
           wall_s=round(wall, 3), ate=err, median_rel_rot_deg=float(np.median(rel)),
           points=int(m.point_valid().sum()), launches=launches, route_launches=routes,
-          expected_launches=chunks, ba_solves=ba_solves, rotation_solves=pg_solves,
+          expected_launches=chunks, polish_launches=polish,
+          expected_polish_launches=polish_expected, ba_solves=ba_solves,
+          rotation_solves=pg_solves,
           ba=ba_passes, stage_s={s["stage"]: s["seconds"] for s in stages},
           trace_bytes=trace_bytes, trace=busy, focal_mult=mult, focal_graph_s=focal_s,
           measured_over_true_angle=angle_ratio, live_edges=int((w > 0).sum()))
@@ -1704,6 +1917,8 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
         failures.append(f"median relative rotation error {np.median(rel)} >= 2 deg")
     if launches != chunks or routes["wgmma_bf16"] != chunks:
         failures.append(f"matcher launched {routes}, expected {chunks} bf16 launches")
+    if polish != polish_expected:
+        failures.append(f"polish launched {polish} times, expected {polish_expected}")
     if ba_solves != {"dense": 0, "pcg": 4}:
         failures.append(f"BA passes by solver {ba_solves}, expected 4 on the PCG")
     if pg_solves != {"dense": 0, "pcg": 1}:
@@ -1717,7 +1932,7 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
         failures.append(f"focal multipliers {mult}")
     if failures:
         raise AssertionError(f"long_capture failed: {failures}")
-    return launches
+    return launches, polish
 
 
 def main() -> int:
@@ -1727,6 +1942,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from sphericalsfm_tpu_torch.device import resolve_device
+    from sphericalsfm_tpu_torch.ops import cuda_libs
     from sphericalsfm_tpu_torch.ops import matching_kernel as mk
 
     resolve_device("cuda")  # TF32 off
@@ -1738,7 +1954,7 @@ def main() -> int:
           tf32=[torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32])
 
     t0 = time.perf_counter()
-    libs = mk.build_library(verbose=True)
+    libs = cuda_libs.build_libraries(verbose=True)
     two_nn, reference = mk.two_nearest_neighbors, mk.two_nn_reference
     phase("build", seconds=round(time.perf_counter() - t0, 3),
           libraries={k: os.path.relpath(v, ROOT) for k, v in libs.items()})
@@ -1748,22 +1964,28 @@ def main() -> int:
                    for name in ("32x1024", "32x4000")}
     phase("kernel", **k)
     del tables
+    pol = run_polish_phase()
 
     main_launches, workflow = run_main_path(two_nn)
     launches = {"main": main_launches}
+    # the final polish's launches by path, each checked there: one a chunk a part
+    polish = {"polish": pol["launches"], "main": workflow["polish_launches"]}
     run_determinism_phase(workflow["gray"], workflow["color"],
                           {s: (workflow["rot0"], workflow["graph"], s) for s in ("dense", "pcg")})
-    launches["static_ransac"], _ = run_main_path(two_nn, static=True)
+    launches["static_ransac"], static = run_main_path(two_nn, static=True)
+    polish["static_ransac"] = static["polish_launches"]
+    del static
     # the adaptive engine again, warm, for its pairwise seconds beside
     # the static run's in one process
-    run_main_path(two_nn, phase_name="adaptive_warm")
+    polish["adaptive_warm"] = run_main_path(two_nn, phase_name="adaptive_warm")[1][
+        "polish_launches"]
     launches["match_k4000"] = run_match_k4000(two_nn, reference, workflow["gray"],
                                               workflow["color"])
-    launches["mesh"], launches["ring"] = run_mesh_phase(two_nn, reference, workflow["gray"],
-                                                        workflow["color"])
+    launches["mesh"], launches["ring"], polish["mesh"] = run_mesh_phase(
+        two_nn, reference, workflow["gray"], workflow["color"])
     run_multihost_phase()
-    launches["uncalibrated"] = run_uncalibrated_phase(two_nn)
-    launches["modes"] = run_modes_phase(two_nn)
+    launches["uncalibrated"], polish["uncalibrated"] = run_uncalibrated_phase(two_nn)
+    launches["modes"], polish["modes"] = run_modes_phase(two_nn)
     run_solvers_phase()
     launches["bench"], launches["bench_f32"] = run_bench_phase(two_nn)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1775,7 +1997,7 @@ def main() -> int:
     del workflow
     run_ba_scale_phase()
     torch.cuda.empty_cache()
-    launches["long_capture"] = run_long_capture_phase(two_nn)
+    launches["long_capture"], polish["long_capture"] = run_long_capture_phase(two_nn)
 
     t_main = k["timing"]["32x1024"]
     bf16_keys = {c: c for c in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -1785,7 +2007,7 @@ def main() -> int:
                 "share_of_bound": "f32_share_of_bound"}
     routes = (("two_nn", "two_nn_wgmma.cu", "main", k["max_abs_err"], bf16_keys, "bf16"),
               ("two_nn_f32", "two_nn.cu", "ring", k["f32_max_abs_err"], f32_keys, "float32"))
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": name,
         "route": "cuda",
         "source": f"sphericalsfm_tpu_torch/csrc/{src}",
@@ -1799,7 +2021,20 @@ def main() -> int:
         "launches_by_phase": launches,
         "by_shape": {shape: {key: t[col] for key, col in keys.items()}
                      for shape, t in k["timing"].items()},
-    } for name, src, path, err, keys, dtype in routes]}), flush=True)
+    } for name, src, path, err, keys, dtype in routes]
+    kernels.append({
+        "name": "spherical_polish",
+        "route": "cuda",
+        "source": "sphericalsfm_tpu_torch/csrc/spherical_polish.cu",
+        "replaces": "sphericalsfm_tpu/ransac/spherical.py:56 (plain XLA, no Pallas kernel)",
+        "launches": polish["main"],
+        "launches_path": "main",
+        "r_rel_max": pol["r_rel_max"],
+        **{key: pol[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "shape": f"{pol['pairs']}x{pol['matches']} float64",
+        "launches_by_phase": polish,
+    })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,9 @@ FP32 FMAs fed by a TMA ring, each distance one fmaf chain over k in
 ascending order, so its outputs are the first, simple float32 kernel's bit
 for bit. Both take any pair count: the bf16 kernel's grid holds 65,535
 pairs, so a larger call is split into launches of at most that many, each
-writing its rows of the outputs. Each source is built with nvcc on first
-use into its own library under `build/kernels/` and bound with ctypes. On
-CPU tensors the wrapper runs `two_nn_reference`.
+writing its rows of the outputs. The sources are built with nvcc on first
+use, with the port's other kernels, and bound with ctypes (`cuda_libs`).
+On CPU tensors the wrapper runs `two_nn_reference`.
 `two_nearest_neighbors.launches` counts kernel launches and
 `two_nearest_neighbors.route_launches` splits them by kernel.
 """
@@ -26,17 +26,11 @@ CPU tensors the wrapper runs `two_nn_reference`.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC"]
+from .cuda_libs import bind
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # route: (source under csrc/, C entry point, its argument types)
@@ -53,58 +47,9 @@ _F32_MAX_BLOCKS = 2 ** 31 - 1  # the f32 kernel's grid: pairs × query tiles on 
 _fns: dict = {}
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the two-NN CUDA kernels cannot be built")
-    return path
-
-
-def _library_path(source: str) -> str:
-    src = os.path.join(_PKG, "csrc", source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(_BUILD_DIR, f"lib{os.path.splitext(source)[0]}_{digest}.so")
-
-
-def build_library(verbose: bool = False) -> dict:
-    """Compile each matcher source for sm_90a into its own shared library
-    under build/kernels/, named by a hash of that source and the flags, so
-    an edit to either source rebuilds it. The nvcc runs start together.
-    Returns {route: library path}."""
-    paths = {route: _library_path(src) for route, (src, _, _) in _KERNELS.items()}
-    running = []
-    for route, path in paths.items():
-        if os.path.exists(path):
-            continue
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        src = os.path.join(_PKG, "csrc", _KERNELS[route][0])
-        cmd = [_nvcc(), *_NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, src]
-        running.append((src, tmp, path, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failed = []
-    for src, tmp, path, proc in running:
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {src} ({proc.returncode}):\n{err}")
-            continue
-        if verbose:
-            print(err, flush=True)
-        os.replace(tmp, path)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return paths
-
-
 def _load(route: str):
-    if not _fns:
-        paths = build_library()
-        for name, (_, entry, argtypes) in _KERNELS.items():
-            fn = getattr(ctypes.CDLL(paths[name]), entry)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _fns[name] = fn
+    if route not in _fns:
+        _fns[route] = bind(*_KERNELS[route])
     return _fns[route]
 
 

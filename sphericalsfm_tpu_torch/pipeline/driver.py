@@ -28,7 +28,9 @@ the port's own spans (`tracing`): the leaves `stage:pairwise.*`,
 `stage:write.*`, and the containers `call:ransac.chunk`, `call:ransac.round`
 and `call:ba.iteration`. The `estimate_pairwise` record counts the RANSAC
 chunks, rounds and the share of pair-rounds spent on pairs still running
-(`chunks`, `rounds`, `active_pct`). `device=None` means
+(`chunks`, `rounds`, `active_pct`), and the final polish's mean LM
+iterations a pair and share of pairs whose polished model was kept
+(`polish_iters`, `polish_accept_pct`). `device=None` means
 CUDA and raises when no card is present; the CPU path runs only when the
 caller passes `device="cpu"`. Random streams come from `torch.Generator`s
 seeded where the JAX driver seeds `PRNGKey(0)` (pairwise RANSAC) and folds

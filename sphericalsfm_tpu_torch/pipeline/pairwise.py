@@ -33,9 +33,11 @@ class PairwiseResult(NamedTuple):
     inlier_mask: np.ndarray   # (P, Nmax)
     keep: np.ndarray          # (P,)
     loop_closure_count: int
-    # {chunks}, and with the adaptive engine {rounds, active_pct}: rounds
-    # summed over chunks, and the pair-rounds of pairs still running over
-    # the pair-rounds computed, in %
+    # {chunks}; with the spherical engines {polish_iters, polish_accept_pct}:
+    # the mean LM iterations of the final polish a pair, and the pairs whose
+    # polished model replaced the RANSAC best, in %; and with the adaptive
+    # engine {rounds, active_pct}: rounds summed over chunks, and the
+    # pair-rounds of pairs still running over the pair-rounds computed, in %
     counts: dict
 
 
@@ -128,7 +130,8 @@ def _gather_results(outs, pair_i, pair_j, match_mask, min_num_inliers) -> Pairwi
         r = torch.cat([o.r for o in outs]).cpu().numpy()
         E = torch.cat([o.E for o in outs]).cpu().numpy()
         spherical = hasattr(outs[0], "rounds")        # the five-point engine runs no rounds
-        per_pair = torch.cat([torch.stack([o.num_inliers, o.rounds]) if spherical
+        per_pair = torch.cat([torch.stack([o.num_inliers, o.rounds, o.polish_iters,
+                                           o.polish_accepted.to(torch.int64)]) if spherical
                               else o.num_inliers[None] for o in outs], dim=1).cpu().numpy()
         num_inliers = per_pair[0]
         inlier_mask = torch.cat([o.inlier_mask for o in outs]).cpu().numpy()
@@ -136,6 +139,9 @@ def _gather_results(outs, pair_i, pair_j, match_mask, min_num_inliers) -> Pairwi
         keep = (num_inliers > min_num_inliers) & enough
         loops = int(np.sum(keep & (pair_i + 1 != pair_j)))
         counts = dict(chunks=len(outs))
+        if spherical:
+            counts.update(polish_iters=float(per_pair[2].mean()),
+                          polish_accept_pct=100.0 * float(per_pair[3].mean()))
         if spherical and per_pair[1].any():         # the adaptive engine
             sizes = [o.r.shape[0] for o in outs]
             chunk_rounds = [int(c.max()) for c in np.split(per_pair[1], np.cumsum(sizes)[:-1])]

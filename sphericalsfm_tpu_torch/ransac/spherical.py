@@ -21,6 +21,13 @@ span holding the leaves `stage:ransac.sample`, `.solve`, `.score` and
 `.stop` (the stop test and its read-back, where the host waits); the
 static engine's phases take the same leaves, and the common tail is
 `stage:ransac.refit` then `stage:ransac.polish`.
+
+The final polish (`_polish`: the LM of the rotation and the MSAC rescoring
+that decides whether its model replaces the RANSAC best) is one launch of
+the hand-written kernel `csrc/spherical_polish.cu` per part on CUDA tensors
+(`polish_kernel.py`), and the plain PyTorch path, the generic LM, on CPU
+tensors. Either way each result carries every pair's LM iterations and
+whether the polished model was kept.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from ..optim.lm import levenberg_marquardt
 from ..solvers.spherical import solve_spherical_3pt
 from ..tracing import span
 from .engine import best_model, join_rows, msac_score, sample_tuples, split_rows
+from .polish_kernel import PolishResult, spherical_polish
 
 # candidates × correspondences of one scoring block of the static engine
 # (2**25 float64 errors: ~0.27 GB, its Sampson temporaries ~2 GB)
@@ -60,6 +68,8 @@ class SphericalRansacResult(NamedTuple):
     inlier_mask: torch.Tensor  # (B, N)
     num_inliers: torch.Tensor  # (B,)
     rounds: torch.Tensor       # (B,) adaptive rounds each pair ran (0: the static engine)
+    polish_iters: torch.Tensor     # (B,) LM iterations of the final polish (0 without it)
+    polish_accepted: torch.Tensor  # (B,) bool: the polished model replaced the RANSAC best
 
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -85,7 +95,34 @@ def _refine_rotation(r0, u, v, weights, inward: bool, max_iters: int):
         return sampson_error(E, uu, vv)
 
     return levenberg_marquardt(residual, r0, args=(u, v), mask=weights,
-                               max_iters=max_iters, init_lambda=1e-6).x
+                               max_iters=max_iters, init_lambda=1e-6)
+
+
+def _polish_plain(r0, u, v, mask, inliers, E, score, sq_thresh, inward: bool,
+                  max_iters: int) -> PolishResult:
+    """The plain PyTorch polish, the kernel's reference: the LM of the
+    rotation from r0 over the RANSAC inliers, then its model's MSAC score
+    over `mask`, kept where strictly lower than `score`."""
+    lm = _refine_rotation(r0, u, v, inliers.to(u.dtype), inward, max_iters)
+    E_ref = make_spherical_essential(so3_exp(lm.x), inward=inward)
+    errs_ref = sampson_error(E_ref, u, v)
+    score_ref = msac_score(errs_ref, sq_thresh, mask)
+    better = score_ref < score
+    return PolishResult(r=lm.x, E=torch.where(better[:, None, None], E_ref, E),
+                        score=torch.where(better, score_ref, score),
+                        inliers=torch.where(better[:, None], (errs_ref < sq_thresh) & mask,
+                                            inliers),
+                        iterations=lm.iterations, accepted=better)
+
+
+def _polish(r0, u, v, mask, inliers, E, score, sq_thresh, inward: bool,
+            max_iters: int) -> PolishResult:
+    """The final polish: the plain path on CPU tensors, else the kernel,
+    which raises on what it does not take."""
+    if u.device.type == "cpu":
+        return _polish_plain(r0, u, v, mask, inliers, E, score, sq_thresh, inward, max_iters)
+    return spherical_polish(*(x.contiguous() for x in (r0, u, v, mask, inliers, E, score)),
+                            sq_thresh, inward, max_iters)
 
 
 class _Part(NamedTuple):
@@ -132,19 +169,18 @@ def _refit_and_polish(gen, parts, home, sq_thresh, inward: bool, final_least_squ
             E_best, score, inliers = q.E, q.score, q.inliers
             r, t = decompose_spherical_essential(E_best, inward=inward)
             if final_least_squares:
-                r_ref = _refine_rotation(r, q.u, q.v, inliers.to(q.u.dtype), inward,
-                                         refine_iters)
-                E_ref = make_spherical_essential(so3_exp(r_ref), inward=inward)
-                errs_ref = sampson_error(E_ref, q.u, q.v)
-                score_ref = msac_score(errs_ref, sq_thresh, q.mask)
-                better = score_ref < score
-                E_best = torch.where(better[:, None, None], E_ref, E_best)
-                score = torch.where(better, score_ref, score)
-                inliers = torch.where(better[:, None], (errs_ref < sq_thresh) & q.mask, inliers)
+                p = _polish(r, q.u, q.v, q.mask, inliers, E_best, score, sq_thresh,
+                            inward, refine_iters)
+                E_best, score, inliers, iters, accepted = (p.E, p.score, p.inliers,
+                                                           p.iterations, p.accepted)
                 r, t = decompose_spherical_essential(E_best, inward=inward)
-            outs.append((E_best, r, t, score, inliers, inliers.sum(-1)))
-        return SphericalRansacResult(*(join_rows(list(x), home) for x in zip(*outs)),
-                                     rounds=rounds)
+            else:
+                iters = torch.zeros(score.shape, dtype=torch.int64, device=score.device)
+                accepted = torch.zeros(score.shape, dtype=torch.bool, device=score.device)
+            outs.append((E_best, r, t, score, inliers, inliers.sum(-1), iters, accepted))
+        E, r, t, score, inliers, num, iters, accepted = (join_rows(list(x), home)
+                                                         for x in zip(*outs))
+        return SphericalRansacResult(E, r, t, score, inliers, num, rounds, iters, accepted)
 
 
 def spherical_ransac(
