@@ -44,6 +44,7 @@ once per CG iteration. A BAProblem is the one-shard case, bit for bit.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import NamedTuple
 
@@ -185,7 +186,7 @@ def _sum_shards(partials, dev, distributed: bool):
     gives its own tensors back, bit for bit."""
     totals = None
     for part in partials:
-        part = [t.to(dev) for t in part]
+        part = [t if t.device == dev else t.to(dev) for t in part]
         totals = part if totals is None else [a + b for a, b in zip(totals, part)]
     if distributed:
         flat = torch.cat([t.reshape(-1) for t in totals])
@@ -528,6 +529,46 @@ def _jacobi_factor(P_blocks, fallback, eps_scale):
     return torch.where(bad[..., None, None], L_fb, L)
 
 
+def preconditioned_cg(matvec, precond, b, iters: int, rtol: float, x0=None):
+    """Preconditioned CG for A x = b on flat vectors, from `x0` (zero when
+    None, or where the warm start leaves a residual larger than ‖b‖ or a
+    non-finite one). Stops at `iters`, at ‖r‖ ≤ rtol·‖b‖ or at a non-finite
+    rz, read back in one host transfer per iteration (every quantity it
+    reads is replicated, so every process takes the same branch); a
+    denominator under 1e-30 in size reads 1e-30. Returns (x, iterations)."""
+    tiny = torch.full((), 1e-30, dtype=b.dtype, device=b.device)
+
+    def safe(d):
+        return torch.where(torch.abs(d) > 1e-30, d, tiny)
+
+    bnorm2 = torch.dot(b, b)
+    if x0 is None:
+        x, r = torch.zeros_like(b), b
+    else:
+        r = b - matvec(x0)
+        r2 = torch.dot(r, r)
+        ok0 = torch.isfinite(r2) & (r2 <= bnorm2)
+        x, r = torch.where(ok0, x0, 0.0), torch.where(ok0, r, b)
+    thresh = rtol * rtol * torch.clamp(bnorm2, min=1e-30)
+    z = precond(r)
+    p, rz = z, torch.dot(r, z)
+    it = 0
+    while it < iters:
+        rr, rz_h, th = torch.stack([torch.dot(r, r), rz, thresh]).tolist()
+        if not (rr > th and math.isfinite(rz_h)):
+            break
+        Ap = matvec(p)
+        alpha = rz / safe(torch.dot(p, Ap))
+        x = torch.addcmul(x, alpha, p)
+        r = torch.addcmul(r, alpha, Ap, value=-1.0)
+        z = precond(r)
+        rz_new = torch.dot(r, z)
+        p = torch.addcmul(z, rz_new / safe(rz), p)
+        rz = rz_new
+        it += 1
+    return x, it
+
+
 class _PCGOperator(NamedTuple):
     matvec: object   # (vc (C, 6), vf) -> S·[vc, vf]
     precond: object  # (rc (C, 6), rf) -> M⁻¹·[rc, rf]
@@ -543,6 +584,7 @@ def _pcg_operator(rs: _ReducedSystem, lam, solve_dtype, coarse=None) -> _PCGOper
     Hff_d = (rs.Hff * (1.0 + lam) + 1e-12).to(sd)
     Hfc_s, Hcc_ds, free_cs = rs.Hfc.to(sd), rs.Hcc_d.to(sd), rs.free_c.to(sd)
     local = [(sh.part, sh.U.to(sd), sh.Hpp_inv.to(sd), sh.tF_sum.to(sd)) for sh in rs.shards]
+    Hfc_flat = Hfc_s.reshape(-1)
 
     # block-Jacobi: the exact Schur diagonal blocks, a Hcc_d factor where
     # their factor fails
@@ -587,16 +629,18 @@ def _pcg_operator(rs: _ReducedSystem, lam, solve_dtype, coarse=None) -> _PCGOper
 
     def shard_matvec(p, U_s, Hpi_s, tF_s, vc, vf):
         # z = Hpp⁻¹ (Wᵀ vc + F vf); this shard's W z and F·z
-        vc, vf = vc.to(U_s.device), vf.to(U_s.device)
+        if vc.device != U_s.device:
+            vc, vf = vc.to(U_s.device), vf.to(U_s.device)
         yk = (U_s * vc[p.obs_cam][:, :, None]).sum(1)                 # Uᵀ vc per obs
-        z = torch.einsum("pij,pj->pi", Hpi_s, _point_sum(p, yk) + tF_s * vf)
-        return _camera_sum(p, (U_s * z[p.obs_pt][:, None, :]).sum(2)), torch.sum(tF_s * z)
+        z = (Hpi_s @ torch.addcmul(_point_sum(p, yk), tF_s, vf)[:, :, None])[:, :, 0]
+        return (_camera_sum(p, (U_s * z[p.obs_pt][:, None, :]).sum(2)),
+                torch.dot(tF_s.view(-1), z.view(-1)))
 
     def matvec(vc, vf):
         # out_c = Hcc_d vc + Hfc vf − W z,  out_f = Hfc·vc + Hff_d vf − F·z
         Wz, Fz = _sum_shards((shard_matvec(*q, vc, vf) for q in local), dev, rs.distributed)
-        out_c = (torch.einsum("cij,cj->ci", Hcc_ds, vc) - Wz + Hfc_s * vf) * free_cs
-        out_f = torch.sum(Hfc_s * vc) + Hff_d * vf - Fz
+        out_c = torch.addcmul((Hcc_ds @ vc[:, :, None])[:, :, 0] - Wz, Hfc_s, vf) * free_cs
+        out_f = torch.addcmul(torch.dot(Hfc_flat, vc.reshape(-1)), Hff_d, vf) - Fz
         return out_c, out_f
 
     def precond(rc, rf):
@@ -615,47 +659,24 @@ def _pcg_operator(rs: _ReducedSystem, lam, solve_dtype, coarse=None) -> _PCGOper
 
 def _pcg_from_rs(rs: _ReducedSystem, p, lam, solve_dtype, pcg_iters: int, pcg_rtol: float,
                  coarse=None, x0_c=None, x0_f=None):
-    """Preconditioned CG on the reduced camera + focal system (see
-    `_pcg_operator`), from the warm start (x0_c, x0_f) when given. Stops at
-    `pcg_iters`, at ‖r‖ ≤ rtol·‖b‖ or at a non-finite rz (one host sync per
-    iteration; every quantity it reads is replicated, so every process
-    takes the same branch). Returns (d_f, d_cam, d_pts, model decrease,
-    CG iterations), d_pts in the form `p` holds the points."""
+    """Preconditioned CG (`preconditioned_cg`) on the reduced camera + focal
+    system (see `_pcg_operator`), the cameras' (C, 6) and the focal laid
+    end to end, from the warm start (x0_c, x0_f) when given. Returns (d_f,
+    d_cam, d_pts, model decrease, CG iterations), d_pts in the form `p`
+    holds the points."""
     matvec, precond = _pcg_operator(rs, lam, solve_dtype, coarse)
-    sd = solve_dtype
-    r_c, r_f = rs.r_c, rs.r_f
-    b_c, b_f = -r_c, -r_f
-    bnorm2 = torch.sum(b_c * b_c) + b_f * b_f
-    if x0_c is None:
-        xc, xf, rc, rf = torch.zeros_like(b_c), torch.zeros_like(b_f), b_c, b_f
-    else:
-        # warm start from the previous LM step; the zero start where the
-        # warm iterate is worse or non-finite
-        xc, xf = (x0_c * rs.free_c).to(sd), x0_f.to(sd)
-        Ax_c, Ax_f = matvec(xc, xf)
-        rc, rf = b_c - Ax_c, b_f - Ax_f
-        r2 = torch.sum(rc * rc) + rf * rf
-        ok0 = torch.isfinite(r2) & (r2 <= bnorm2)
-        xc, xf = torch.where(ok0, xc, 0.0), torch.where(ok0, xf, 0.0)
-        rc, rf = torch.where(ok0, rc, b_c), torch.where(ok0, rf, b_f)
-    zc, zf = precond(rc, rf)
-    pc, pf = zc, zf
-    rz = torch.sum(rc * zc) + rf * zf
-    thresh = pcg_rtol * pcg_rtol * torch.clamp(bnorm2, min=1e-30)
-    it = 0
-    while it < pcg_iters and bool((torch.sum(rc * rc) + rf * rf > thresh) & torch.isfinite(rz)):
-        Apc, Apf = matvec(pc, pf)
-        denom = torch.sum(pc * Apc) + pf * Apf
-        alpha = rz / torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
-        xc, xf = xc + alpha * pc, xf + alpha * pf
-        rc, rf = rc - alpha * Apc, rf - alpha * Apf
-        zc, zf = precond(rc, rf)
-        rz_new = torch.sum(rc * zc) + rf * zf
-        beta = rz_new / torch.where(torch.abs(rz) > 1e-30, rz, 1e-30)
-        pc, pf = zc + beta * pc, zf + beta * pf
-        rz = rz_new
-        it += 1
-    d_cam, d_f = xc.to(rs.b_c.dtype), xf.to(rs.b_c.dtype)
+    n, shape = rs.r_c.numel(), rs.r_c.shape
+
+    def join(c, s):
+        return torch.cat([c.reshape(-1), s.reshape(1)])
+
+    def flat(op):
+        return lambda v: join(*op(v[:n].view(shape), v[n]))
+
+    x0 = None if x0_c is None else join((x0_c * rs.free_c).to(solve_dtype), x0_f.to(solve_dtype))
+    x, it = preconditioned_cg(flat(matvec), flat(precond), -join(rs.r_c, rs.r_f), pcg_iters,
+                              pcg_rtol, x0)
+    d_cam, d_f = x[:n].view(shape).to(rs.b_c.dtype), x[n].to(rs.b_c.dtype)
     d_pts, md = _backsub_and_md(rs, d_cam, d_f)
     return d_f, d_cam, _as_given(p, d_pts), md, it
 
@@ -785,8 +806,8 @@ def bundle_adjust(p, max_iters: int = 50, loss_scale: float = 1.0,
     `bundle_adjust.solves` counts the calls by resolved solver. Under a
     profiler (`tracing`): `stage:ba.prepare` (set-up and the initial cost),
     then a `call:ba.iteration` for each LM step holding `stage:ba.assemble`,
-    `stage:ba.solve` and `stage:ba.step` (the new cost, its read-back and
-    the accept test)."""
+    the camera solve (`stage:ba.solve` dense, `stage:ba.cg` on the PCG) and
+    `stage:ba.step` (the new cost, its read-back and the accept test)."""
     with span("stage:ba.prepare"):
         p, solver = prepare_problem(p, camera_solver)
         bundle_adjust.solves[solver] += 1
@@ -811,7 +832,7 @@ def bundle_adjust(p, max_iters: int = 50, loss_scale: float = 1.0,
             with span("stage:ba.assemble"):
                 lam_t = torch.full((), lam, dtype=dtype, device=dev)  # a fill, no host copy
                 rs = _assemble_reduced(f, ct, cr, pts, p, lam_t, loss_scale, solve_dtype)
-            with span("stage:ba.solve"):
+            with span("stage:ba.cg" if solver == "pcg" else "stage:ba.solve"):
                 if solver == "pcg":
                     d_f, d_cam, d_pts, md, n_cg = _pcg_from_rs(rs, p, lam_t, solve_dtype,
                                                                pcg_iters, pcg_rtol, coarse,

@@ -12,6 +12,10 @@ axis rotation Rxy(θxy) and a roll Rz(θz), and θxy warps as
 θ' = atan2(2f·sinθxy, (1+f²)cosθxy + (1−f²)), f bound-constrained.
 Above 400 frames ("auto") the LM step is matrix-free instead: block-Jacobi
 preconditioned CG over the edge list, with the same node reductions.
+Under a profiler (`tracing`) each LM iteration is a `call:pose_graph.iteration`
+holding the leaves `stage:pose_graph.solve` (the edge terms and the dense or
+PCG step) and `stage:pose_graph.step` (the new cost, its read-back and the
+accept test).
 
 The focal sweep runs every hypothesis at once: the relative rotations at T
 focal hypotheses are a (T, E, 3) batch, the rotation init composes a
@@ -32,7 +36,8 @@ import torch
 
 from ..geometry.essential import conjugate_essential_by_focal, decompose_spherical_essential
 from ..geometry.so3 import so3_exp, so3_log
-from .ba import _jacobi_factor
+from ..tracing import span
+from .ba import _jacobi_factor, preconditioned_cg
 from .lm import soft_l1_rho, soft_l1_weight
 
 SOFT_L1_SCALE = 0.03
@@ -112,7 +117,9 @@ def _robust_block_lm(residual_edge, rotations_r, extra0, edge_i, edge_j, edge_da
     residuals. solver="dense" solves the (3N [+1])² normal equations by an
     equilibrated Cholesky; "pcg" runs block-Jacobi CG over the edge list
     without forming them (one host sync per CG iteration). Both share the
-    step control. Returns (rotations, extra, cost)."""
+    step control. Returns (rotations, extra, cost, counts): `counts` holds
+    the solver, the LM iterations and the CG iterations over all of them
+    (`solver`, `iterations`, `pcg_iterations`)."""
     N = rotations_r.shape[0]
     dtype, dev = rotations_r.dtype, rotations_r.device
     has_extra = extra0 is not None
@@ -170,6 +177,11 @@ def _robust_block_lm(residual_edge, rotations_r, extra0, edge_i, edge_j, edge_da
 
     if solver == "dense":
         pair_order, pair_ptr = segments(ei * N + ej, N * N)
+    else:
+        # the PCG gathers each edge's node pair as one (E, 6) row and sums
+        # its (E, 6) products onto the nodes in node_sum's order
+        pair_nodes = torch.stack([ei, ej], dim=1).reshape(-1)
+        pair_rows = torch.where(node_order < E, 2 * node_order, 2 * (node_order - E) + 1)
 
     def dense_step(rots, extra, lam):
         A0, A1, C01, g0, g1, f0, f1, Hff, gf = edge_terms(rots, extra)
@@ -192,77 +204,82 @@ def _robust_block_lm(residual_edge, rotations_r, extra0, edge_i, edge_j, edge_da
         A_eq = A / dscale[:, None] / dscale[None, :]
         L, _ = torch.linalg.cholesky_ex(A_eq + 1e-12 * torch.eye(D, dtype=dtype, device=dev))
         dx = torch.cholesky_solve((-(gvec / dscale))[:, None], L)[:, 0] / dscale
-        return dx[:3 * N].reshape(N, 3), dx[3 * N] if has_extra else None
+        return dx[:3 * N].reshape(N, 3), dx[3 * N] if has_extra else None, 0
 
     def pcg_step(rots, extra, lam):
         A0, A1, C01, g0, g1, f0, f1, Hff, gf = edge_terms(rots, extra)
         # frozen (gauge) nodes are exact zeros after the node reduction
         Hnn = node_sum(A0, A1) * free[:, None, None]
         gnode = node_sum(g0, g1) * free[:, None]
-        dvec = torch.clamp(torch.diagonal(Hnn, dim1=-2, dim2=-1), min=1e-12)
+        lam_d = lam * torch.clamp(torch.diagonal(Hnn, dim1=-2, dim2=-1), min=1e-12)
         Hff_d = Hff * (1.0 + lam) + 1e-12
+        # each edge's block [[A0, C01], [C01ᵀ, A1]] on its node pair [x_i, x_j]
+        B = torch.cat([torch.cat([A0, C01], -1), torch.cat([C01.transpose(1, 2), A1], -1)], 1)
+        F = torch.cat([f0, f1], -1)
+        n3, free_n = 3 * N, free[:, None]
 
-        def matvec(x, xf):
-            xi, xj = x[ei], x[ej]
-            y0 = torch.einsum("eij,ej->ei", A0, xi) + torch.einsum("eij,ej->ei", C01, xj) + f0 * xf
-            y1 = torch.einsum("eij,ei->ej", C01, xi) + torch.einsum("eij,ej->ei", A1, xj) + f1 * xf
-            out = node_sum(y0, y1) * free[:, None] + lam * dvec * x
-            return out, torch.sum(f0 * xi) + torch.sum(f1 * xj) + Hff_d * xf
+        def matvec(v):
+            x = v[:n3].view(N, 3)
+            xij = x[pair_nodes].view(E, 6)
+            y = (B @ xij[:, :, None])[:, :, 0]
+            if has_extra:
+                y = torch.addcmul(y, F, v[n3])
+            seg = torch.segment_reduce(y.view(2 * E, 3)[pair_rows], "sum", offsets=node_ptr,
+                                       axis=0, unsafe=True)
+            out = torch.addcmul(seg * free_n, lam_d, x).reshape(-1)
+            if not has_extra:
+                return out
+            yf = torch.addcmul(torch.dot(F.reshape(-1), xij.reshape(-1)), Hff_d, v[n3])
+            return torch.cat([out, yf.reshape(1)])
 
         # damped node blocks, eps-clamped; a failed factor takes the
         # blocks' diagonal
-        Pn = Hnn + torch.diag_embed(lam * dvec)
+        Pn = Hnn + torch.diag_embed(lam_d)
         Lp = _jacobi_factor(Pn, torch.diag_embed(torch.diagonal(Pn, dim1=-2, dim2=-1)), 1e-8)
         Pf = torch.clamp(Hff_d, min=1e-30)
 
-        def precond(r, rf):
-            return torch.cholesky_solve(r[:, :, None], Lp)[:, :, 0] * free[:, None], rf / Pf
+        def precond(v):
+            z = (torch.cholesky_solve(v[:n3].view(N, 3, 1), Lp)[:, :, 0] * free_n).reshape(-1)
+            return torch.cat([z, (v[n3] / Pf).reshape(1)]) if has_extra else z
 
-        r, rf = -gnode, -gf
-        thresh = pcg_rtol * pcg_rtol * torch.clamp(torch.sum(r * r) + rf * rf, min=1e-30)
-        x, xf = torch.zeros_like(r), torch.zeros_like(rf)
-        z, zf = precond(r, rf)
-        p, pf = z, zf
-        rz = torch.sum(r * z) + rf * zf
-        it = 0
-        while it < pcg_iters and bool((torch.sum(r * r) + rf * rf > thresh) & torch.isfinite(rz)):
-            Ap, Apf = matvec(p, pf)
-            denom = torch.sum(p * Ap) + pf * Apf
-            alpha = rz / torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
-            x, xf = x + alpha * p, xf + alpha * pf
-            r, rf = r - alpha * Ap, rf - alpha * Apf
-            z, zf = precond(r, rf)
-            rz_new = torch.sum(r * z) + rf * zf
-            beta = rz_new / torch.where(torch.abs(rz) > 1e-30, rz, 1e-30)
-            p, pf = z + beta * p, zf + beta * pf
-            rz = rz_new
-            it += 1
-        return x, xf if has_extra else None
+        b = -gnode.reshape(-1)
+        if has_extra:
+            b = torch.cat([b, -gf.reshape(1)])
+        x, it = preconditioned_cg(matvec, precond, b, pcg_iters, pcg_rtol)
+        return x[:n3].view(N, 3), x[n3] if has_extra else None, it
 
     step = pcg_step if solver == "pcg" else dense_step
     rots = rotations_r
     extra = torch.as_tensor(extra0, dtype=dtype, device=dev) if has_extra else None
     lam = torch.tensor(1e-4, dtype=dtype, device=dev)
     cost = total_cost(rots, extra)
-    for _ in range(max_iters):
-        dxn, dxf = step(rots, extra, lam)
-        rots_n = rots + dxn * free[:, None]
-        extra_n = extra
-        if has_extra:
-            extra_n = extra + dxf
-            if extra_bounds is not None:
-                extra_n = torch.clamp(extra_n, float(extra_bounds[0]), float(extra_bounds[1]))
-        cost_n = total_cost(rots_n, extra_n)
-        ok = bool(torch.isfinite(cost_n) & (cost_n < cost))
-        rel = float((cost - cost_n) / torch.clamp(cost, min=1e-30))
-        if ok:
-            lam = torch.clamp(lam * 0.33, min=1e-12)
-            rots, extra, cost = rots_n, extra_n, cost_n
-        else:
-            lam = lam * 4.0
-        if (ok and rel < ftol) or float(lam) > 1e10:
+    it = cg_total = 0
+    while it < max_iters:
+        with span("call:pose_graph.iteration"):
+            with span("stage:pose_graph.solve"):
+                dxn, dxf, n_cg = step(rots, extra, lam)
+            with span("stage:pose_graph.step"):
+                rots_n = rots + dxn * free[:, None]
+                extra_n = extra
+                if has_extra:
+                    extra_n = extra + dxf
+                    if extra_bounds is not None:
+                        extra_n = torch.clamp(extra_n, float(extra_bounds[0]),
+                                              float(extra_bounds[1]))
+                cost_n = total_cost(rots_n, extra_n)
+                ok = bool(torch.isfinite(cost_n) & (cost_n < cost))
+                rel = float((cost - cost_n) / torch.clamp(cost, min=1e-30))
+                it += 1
+                cg_total += n_cg
+                if ok:
+                    lam = torch.clamp(lam * 0.33, min=1e-12)
+                    rots, extra, cost = rots_n, extra_n, cost_n
+                else:
+                    lam = lam * 4.0
+                done = (ok and rel < ftol) or float(lam) > 1e10
+        if done:
             break
-    return rots, extra, cost
+    return rots, extra, cost, dict(solver=solver, iterations=it, pcg_iterations=cg_total)
 
 
 def _gauge_mask(N: int, device) -> torch.Tensor:
@@ -279,9 +296,11 @@ def _resolve_solver(solver: str, N: int) -> str:
 
 
 def optimize_rotations(rotations_r: torch.Tensor, g: RotationGraph, max_iters: int = 64,
-                       solver: str = "auto", ftol: float = 1e-12):
+                       solver: str = "auto", ftol: float = 1e-12, return_counts: bool = False):
     """Robust rotation averaging; camera 0 is the gauge anchor. `solver`:
-    "dense", "pcg" or "auto". Returns (rotations (N, 3), final cost);
+    "dense", "pcg" or "auto". Returns (rotations (N, 3), final cost), and
+    with `return_counts` a third item, the resolved solver and the LM and CG
+    iterations (`solver`, `iterations`, `pcg_iterations`);
     `optimize_rotations.solves` counts the calls by resolved solver."""
     solver = _resolve_solver(solver, rotations_r.shape[0])
     optimize_rotations.solves[solver] += 1
@@ -290,17 +309,19 @@ def optimize_rotations(rotations_r: torch.Tensor, g: RotationGraph, max_iters: i
     def residual(r0, r1, _extra, r_meas):
         return _cycle_residual(r0, r1, r_meas, scale)
 
-    rots, _, cost = _robust_block_lm(
+    rots, _, cost, counts = _robust_block_lm(
         residual, rotations_r, None, g.edge_i, g.edge_j, g.r_meas, g.edge_w,
         _gauge_mask(rotations_r.shape[0], rotations_r.device), max_iters=max_iters, ftol=ftol,
         solver=solver)
-    return rots, cost
+    return (rots, cost, counts) if return_counts else (rots, cost)
 
 
 def optimize_rotations_and_focal(rotations_r: torch.Tensor, g: RotationGraph, focal_mult0,
-                                 mult_lo, mult_hi, max_iters: int = 64, solver: str = "auto"):
+                                 mult_lo, mult_hi, max_iters: int = 64, solver: str = "auto",
+                                 return_counts: bool = False):
     """Joint rotations + focal-multiplier optimization, the multiplier held
-    in [mult_lo, mult_hi]. Returns (rotations (N, 3), focal_mult, cost);
+    in [mult_lo, mult_hi]. Returns (rotations (N, 3), focal_mult, cost),
+    and with `return_counts` `optimize_rotations`'s counts as a fourth item;
     the caller multiplies its focal by focal_mult."""
     solver = _resolve_solver(solver, rotations_r.shape[0])
     scale = _edge_scale(g)
@@ -312,10 +333,11 @@ def optimize_rotations_and_focal(rotations_r: torch.Tensor, g: RotationGraph, fo
         R0, R1 = so3_exp(r0), so3_exp(r1)
         return scale * so3_log((R1 @ R0.transpose(-1, -2)) @ Rm.transpose(-1, -2))
 
-    return _robust_block_lm(
+    *out, counts = _robust_block_lm(
         residual, rotations_r, focal_mult0, g.edge_i, g.edge_j, edge_data, g.edge_w,
         _gauge_mask(rotations_r.shape[0], rotations_r.device),
         extra_bounds=(mult_lo, mult_hi), max_iters=max_iters, solver=solver)
+    return (*out, counts) if return_counts else tuple(out)
 
 
 optimize_rotations.solves = {"dense": 0, "pcg": 0}

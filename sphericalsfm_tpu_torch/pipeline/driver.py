@@ -24,11 +24,15 @@ activity) covers the driver from the frontend to the end of the writers and
 lands in that directory as the Chrome trace `trace.json`. In it each
 `StageLogger` stage is the span `stage:<stage>`, and inside the stages are
 the port's own spans (`tracing`): the leaves `stage:pairwise.*`,
-`stage:ransac.*`, `stage:ba.*`, `stage:sfm.retriangulate` and
-`stage:write.*`, and the containers `call:ransac.chunk`, `call:ransac.round`
-and `call:ba.iteration`. The `estimate_pairwise` record counts the RANSAC
-chunks, rounds and the share of pair-rounds spent on pairs still running
-(`chunks`, `rounds`, `active_pct`), and the final polish's mean LM
+`stage:ransac.*`, `stage:pose_graph.*`, `stage:ba.*`,
+`stage:sfm.retriangulate` and `stage:write.*`, and the containers
+`call:ransac.chunk`, `call:ransac.round`, `call:pose_graph.iteration` and
+`call:ba.iteration`. The `rotation_init` (calibrated) and `focal_search`
+(uncalibrated) records hold the rotation LM's solver and its LM and CG
+iterations (`solver`, `iterations`, `pcg_iterations`). The
+`estimate_pairwise` record counts the RANSAC chunks, rounds and the share
+of pair-rounds spent on pairs still running (`chunks`, `rounds`,
+`active_pct`), and the final polish's mean LM
 iterations a pair and share of pairs whose polished model was kept
 (`polish_iters`, `polish_accept_pct`). `device=None` means
 CUDA and raises when no card is present; the CPU path runs only when the
@@ -277,8 +281,8 @@ def run_calibrated(video: str | None, intrinsics: Intrinsics, output_dir: str,
             rot0 = initialize_rotations_sequential(F, g)
         else:
             rot0 = initialize_rotations_global(F, g, weights=np.where(keep, pw.num_inliers, 0))
-        rots, pg_cost = optimize_rotations(rot0, g)
-        log.end(frames_in_component=len(frames), cost=float(pg_cost))
+        rots, pg_cost, pg = optimize_rotations(rot0, g, return_counts=True)
+        log.end(frames_in_component=len(frames), cost=float(pg_cost), **pg)
 
         log.start("build_sfm")
         tracks = build_feature_tracks(F, fr.feats.counts, fr.pair_i, fr.pair_j, fr.idx0,
@@ -452,11 +456,11 @@ def run_uncalibrated(video: str | None, output_dir: str, cfg: PipelineConfig | N
             rot0 = initialize_rotations_sequential(F, g)
         else:
             rot0 = initialize_rotations_global(F, g, weights=np.where(keep, pw.num_inliers, 0))
-        rots, fmult, pg_cost = optimize_rotations_and_focal(
+        rots, fmult, pg_cost, pg = optimize_rotations_and_focal(
             rot0, g, 1.0, focal_guess * cfg.focal.min_focal_factor / best_focal,
-            focal_guess * cfg.focal.max_focal_factor / best_focal)
+            focal_guess * cfg.focal.max_focal_factor / best_focal, return_counts=True)
         focal = best_focal * float(fmult)
-        log.end(best_search_focal=best_focal, focal=focal, cost=float(pg_cost),
+        log.end(best_search_focal=best_focal, focal=focal, cost=float(pg_cost), **pg,
                 **({"sixpoint": sp_info} if cfg.six_point else {}))
 
         log.start("build_sfm")

@@ -119,6 +119,21 @@ def test_span_counts_equal_the_stage_records(profiled, driver):
     assert names["stage:ba.assemble"] == names["stage:ba.step"] == ba_iters
 
 
+@pytest.mark.parametrize("driver", ["calibrated", "uncalibrated"])
+def test_pose_graph_spans_count_the_rotation_lm(profiled, driver):
+    """Each rotation-LM iteration (the calibrated `optimize_rotations`, the
+    uncalibrated joint focal refinement) is one `call:pose_graph.iteration`
+    with its two leaves; the driver's record of that stage (`rotation_init`,
+    `focal_search`) counts them."""
+    stages, spans, _ = profiled[driver]
+    names = Counter(e["name"] for e in spans)
+    iters = names["call:pose_graph.iteration"]
+    assert iters == names["stage:pose_graph.solve"] == names["stage:pose_graph.step"] > 0
+    stage = "rotation_init" if driver == "calibrated" else "focal_search"
+    rec = next(s for s in stages if s["stage"] == stage)
+    assert (rec["solver"], rec["iterations"], rec["pcg_iterations"]) == ("dense", iters, 0)
+
+
 def test_the_spherical_ba_record_has_no_host_timers(profiled):
     stages, _, _ = profiled["calibrated"]
     rec = next(s for s in stages if s["stage"] == "spherical_ba")
