@@ -7,8 +7,9 @@ non-zero):
   1. device  — require CUDA, TF32 off, print the card's name and power limit;
   2. build   — compile every CUDA source of the port with nvcc, all at
                once: csrc/two_nn_wgmma.cu (bf16, the main path's matcher),
-               csrc/two_nn.cu (float32 FMAs, the matcher's exact checker) and
-               csrc/spherical_polish.cu (RANSAC's final rotation polish);
+               csrc/two_nn.cu (float32 FMAs, the matcher's exact checker),
+               csrc/spherical_polish.cu (RANSAC's final rotation polish) and
+               csrc/spherical_round.cu (one adaptive RANSAC round);
   3. kernel  — both kernels against their plain PyTorch version on the card
                at 32 pairs × 1024 (the main path's chunk) and 32 pairs ×
                4000 (the default keypoint count), and on a ragged 8 × 1000
@@ -30,14 +31,28 @@ non-zero):
                models within 1e-9, model and score untouched where not
                accepted; the kernel's time beside the plain path's and its
                FP64 bound (`polish_flops`), and its launches;
+  3b. round  — the RANSAC round kernel against the plain PyTorch round on
+               the card at the main path's chunk (128 pairs × 128 triples ×
+               1024 matches, half to all of them valid, 30–70% outliers,
+               float64, 60% of the pairs active), `round_agreement`: the
+               candidates no farther apart, percentile by percentile, than
+               the plain solve moves under a one-rounding change of its rays
+               (`round_sensitivity`), every MSAC score that of its own E
+               within 1e-9, the same best and keep outside ties, the kept
+               models, scores and inlier rows alike, inactive pairs untouched; a
+               repeat bit for bit; the kernel's time with every pair active
+               beside the plain round's and its FP64 bound (`round_flops`);
   4. main    — the calibrated driver on a rendered 48-frame 640×480 capture
                (focal 512, 1024 keypoints, exhaustive matching of 1128
                pairs); ATE < 0.05, median relative rotation error < 2°,
-               output files present, one matcher launch per 32-pair chunk
-               and one polish launch per 128-pair RANSAC chunk (9). The
-               pairwise stage's seconds and peak device memory. Every phase
-               that runs pairwise RANSAC below holds the polish to one
-               launch a part of each chunk (`polish_parts`) the same way.
+               output files present, one matcher launch per 32-pair chunk,
+               one polish launch per 128-pair RANSAC chunk (9) and one round
+               launch a round. The pairwise stage's seconds and peak device
+               memory. Every phase that runs pairwise RANSAC below holds its
+               kernels the same way (`ransac_launches`): the polish one a
+               part of each chunk, the round kernel rounds × parts (the
+               stage record's `round_launches` too; the static engine one a
+               part of each chunk, the five-point none).
   4a. determinism — ROADMAP C26: the main phase's frames detected twice
                (1024 keypoints) and its rotation graph averaged twice by the
                dense solver and twice by the PCG, each pair bit for bit.
@@ -164,8 +179,9 @@ non-zero):
                ground truth's (the measured edges of 1.3° and 2° come out
                3–6% short, so the measured graph's optimum is ~1.036).
 Then one JSON line describing the kernels: the two matchers (launches per
-phase, times and bound at both shapes) and the polish (its launches on the
-main path and by phase, and the polish phase's times and bound), the card's
+phase, times and bound at both shapes), the polish and the round kernel (each
+one's launches on the main path and by phase, and its phase's times and
+bound), the card's
 name and power limit, and last the result line {"ok": true, "device":
 {...}}. The script imports nothing of JAX.
 """
@@ -198,18 +214,31 @@ def sync(device):
 
 
 def reset_counts(two_nn):
-    """Zero the matcher's launch counts and the final polish's."""
+    """Zero the matcher's launch counts, the final polish's and the RANSAC
+    round's."""
     from sphericalsfm_tpu_torch.ransac.polish_kernel import spherical_polish
+    from sphericalsfm_tpu_torch.ransac.round_kernel import spherical_round
 
     two_nn.launches = 0
     two_nn.route_launches.update(dict.fromkeys(two_nn.route_launches, 0))
     spherical_polish.launches = 0
+    spherical_round.launches = 0
 
 
 def polish_launches() -> int:
     from sphericalsfm_tpu_torch.ransac.polish_kernel import spherical_polish
 
     return spherical_polish.launches
+
+
+def round_launches() -> int:
+    from sphericalsfm_tpu_torch.ransac.round_kernel import spherical_round
+
+    return spherical_round.launches
+
+
+# the round kernel's launches by phase, each checked there
+ROUND_LAUNCHES: dict = {}
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -520,14 +549,440 @@ def run_polish_phase(device="cuda", B=128, N=1024):
     return info
 
 
-def polish_parts(pairs: int, chunk: int, devices: int = 0) -> int:
-    """Polish launches of one pairwise RANSAC sweep: one a part of each
-    chunk, a chunk grown with the mesh and split over its shards as
-    `estimate_pairwise` grows and splits it."""
+def _chunk_parts(pairs: int, chunk: int, devices: int = 0) -> list:
+    """The parts of each chunk of a pairwise sweep: a chunk grown with the
+    mesh and split over its shards as `estimate_pairwise` grows and splits
+    it."""
     nd = max(devices, 1)
     if devices:
         chunk = -(-chunk // nd) * nd * max(1, nd // 8)
-    return sum(min(nd, pairs - s) for s in range(0, pairs, chunk))
+    return [min(nd, pairs - s) for s in range(0, pairs, chunk)]
+
+
+def polish_parts(pairs: int, chunk: int, devices: int = 0) -> int:
+    """Polish launches of one pairwise RANSAC sweep: one a part of each
+    chunk."""
+    return sum(_chunk_parts(pairs, chunk, devices))
+
+
+def ransac_launches(polish: int, rounds: int, record: dict, pairs: int, chunk: int,
+                    devices: int = 0, kernels: bool = True):
+    """The RANSAC kernels' launches of one pairwise sweep against what it
+    must launch, from the counters' `polish` and `rounds` and the sweep's
+    `estimate_pairwise` stage `record`: the polish one a part of each chunk;
+    the round kernel rounds × parts with the adaptive engine (the record's
+    `rounds`, and its `round_launches` the same count), one a part of each
+    chunk with the static one; none of either where `kernels` is False (the
+    five-point engine). Returns (the counts and expectations, failures)."""
+    parts = _chunk_parts(pairs, chunk, devices)
+    adaptive = "rounds" in record
+    if not kernels:
+        want_polish = want_rounds = 0
+    elif adaptive:     # a chunk runs its rounds on each of its parts
+        want_polish = sum(parts)
+        want_rounds = record["rounds"] * parts[0] if len(set(parts)) == 1 else None
+    else:
+        want_polish = want_rounds = sum(parts)
+    info = dict(polish_launches=polish, expected_polish_launches=want_polish,
+                round_launches=rounds, expected_round_launches=want_rounds,
+                recorded_round_launches=record.get("round_launches"))
+    failures = []
+    if polish != want_polish:
+        failures.append(f"polish launched {polish} times, expected {want_polish}")
+    if rounds != want_rounds or (adaptive and record.get("round_launches") != rounds):
+        failures.append(f"round kernel launched {rounds} times (recorded "
+                        f"{record.get('round_launches')}), expected {want_rounds}")
+    return info, failures
+
+
+# Floating-point operations of the RANSAC round (csrc/spherical_round.cu),
+# counted from its arithmetic: a product or sum is 1, a math-library call
+# (sqrt, hypot, atan2, pow, cos, sin) 1.
+ROUND_SOLVE_FLOPS = 6140  # a triple: the epipolar rows (30); Gram-Schmidt of them (129),
+#                           the six residuals (432) and their norms (78), Gram-Schmidt of
+#                           the three kept (129); at each of 10 nodes its parameters (30),
+#                           E Eᵀ (45), its trace (2), 2 E Eᵀ E − tr E (72), det E (14) and
+#                           the node's share of C (200); C1ᵀC1's lower half (420), C1ᵀC2
+#                           (480), the Cholesky (91), forward (144) and the two last rows
+#                           back (16); the quartic's coefficients (3) and roots (174);
+#                           2 Newton steps on 4 roots (152); x (36), p, its norm and the
+#                           division (196)
+ROUND_SCORE_FLOPS = 38    # a candidate and a valid match: E u (13), Eᵀv's first two (10),
+#                           vᵀEu (5), the denominator (7), d² (1), thr·den (1), the sum (1);
+#                           the division, made only under the threshold, is not counted
+ROUND_INLIER_FLOPS = 37   # a match of a pair that keeps its round's best: the error (36)
+#                           and its division
+
+
+def round_flops(valid_rows, R: int, N: int, kept: int = 0) -> float:
+    """Operations of one round call: for each active pair, whose valid
+    matches `valid_rows` counts, R solves and 4R candidates scored over its
+    valid matches; then N errors for each of the `kept` pairs whose round
+    best replaced its running best."""
+    rows = float(valid_rows.sum()) if torch.is_tensor(valid_rows) else float(sum(valid_rows))
+    active = valid_rows.numel() if torch.is_tensor(valid_rows) else len(valid_rows)
+    return (active * R * ROUND_SOLVE_FLOPS + 4 * R * rows * ROUND_SCORE_FLOPS
+            + kept * N * ROUND_INLIER_FLOPS)
+
+
+def round_inputs(B, R, N, dtype=torch.float64, seed=0, device="cuda", active_share=0.6,
+                 outliers=(0.3, 0.7), rotation_deg=-1.0):
+    """One round's inputs at B pairs × R triples × N matches: rays of random
+    spherical problems (1 px noise at f = 600; rotations uniform in [0, π)
+    by default) with a share of outliers drawn per pair from `outliers`,
+    each pair's valid matches a prefix of N/2 to N rows (the rest filled
+    with junk rays); the running best after one plain round of other
+    triples from no model, the round's triples from `sample_tuples` and an
+    active flag drawn per pair at `active_share`. Returns (triples, u, v,
+    mask, E, score, inliers, active, sq_thresh)."""
+    from sphericalsfm_tpu_torch.eval.synthetic import make_random_problems
+    from sphericalsfm_tpu_torch.ransac import spherical as sph
+    from sphericalsfm_tpu_torch.ransac.engine import sample_tuples
+
+    prob = make_random_problems(torch.Generator().manual_seed(seed), B, N,
+                                rotation_deg=rotation_deg, point_noise=1.0 / 600, device="cpu")
+    rng = np.random.default_rng(seed)
+    out = rng.uniform(size=(B, N)) < rng.uniform(*outliers, size=(B, 1))
+    u, v = prob.u.numpy().copy(), prob.v.numpy().copy()
+    v[..., :2] = np.where(out[..., None], rng.normal(size=(B, N, 2)) * 0.5, v[..., :2])
+    mask = prob.valid.numpy() & (np.arange(N) < rng.integers(N // 2, N + 1, size=(B, 1)))
+    u[~mask] = rng.normal(size=(int((~mask).sum()), 3)) * 1e3
+    u, v = (torch.as_tensor(x, dtype=dtype, device=device) for x in (u, v))
+    mask = torch.as_tensor(mask, device=device)
+    sq = (2.0 / 600) ** 2
+    gen = torch.Generator().manual_seed(seed + 1)
+    first = sample_tuples(gen, mask.cpu(), R, 3).to(device)
+    start = sph._round_plain(sph._start(u, v, mask), first,
+                             torch.ones(B, dtype=torch.bool, device=device), sq)
+    triples = sample_tuples(gen, mask.cpu(), R, 3).to(device)
+    active = torch.as_tensor(rng.uniform(size=B) < active_share, device=device)
+    return triples, u, v, mask, start.E, start.score, start.inliers, active, sq
+
+
+def round_plain_candidates(args):
+    """The plain round's candidates on the inputs' device: E (B, 4R, 3, 3),
+    valid and MSAC scores (B, 4R), as `engine.best_model` scores them."""
+    from sphericalsfm_tpu_torch.ransac import spherical as sph
+    from sphericalsfm_tpu_torch.solvers.spherical import solve_spherical_3pt
+
+    triples, u, v = args[:3]
+    B = u.shape[0]
+    Es, valid = solve_spherical_3pt(sph._gather_rows(u, triples), sph._gather_rows(v, triples))
+    Es, valid = Es.reshape(B, -1, 3, 3), valid.reshape(B, -1)
+    return Es, valid, candidate_scores(args, Es, valid)
+
+
+def candidate_scores(args, Es, valid):
+    """The MSAC scores (B, S) of candidates Es (B, S, 3, 3) over the
+    inputs' matches, as `engine.best_model` scores them: +inf where not
+    `valid`."""
+    from sphericalsfm_tpu_torch.ransac import spherical as sph
+    from sphericalsfm_tpu_torch.ransac.engine import msac_score
+
+    u, v, mask, sq = args[1], args[2], args[3], args[8]
+    errs = sph.sampson_error(Es, u[:, None], v[:, None])
+    errs = torch.where(torch.isfinite(errs), errs, torch.full_like(errs, float("inf")))
+    return torch.where(valid, msac_score(errs, sq, mask[:, None, :]),
+                       torch.full_like(valid, float("inf"), dtype=u.dtype))
+
+
+def round_witness(args):
+    """The plain solve's candidates (E, valid) for the inputs' triples
+    computed on the CPU and moved to the inputs' device: the reference run
+    again with other reductions and math libraries, so what it moves
+    against the plain solve on the card is what rounding alone moves."""
+    from sphericalsfm_tpu_torch.ransac import spherical as sph
+    from sphericalsfm_tpu_torch.solvers.spherical import solve_spherical_3pt
+
+    triples, u, v = (x.cpu() for x in args[:3])
+    B = u.shape[0]
+    Es, valid = solve_spherical_3pt(sph._gather_rows(u, triples), sph._gather_rows(v, triples))
+    dev = args[1].device
+    return Es.reshape(B, -1, 3, 3).to(dev), valid.reshape(B, -1).to(dev)
+
+
+def candidate_residuals(args, Es):
+    """Each candidate's residuals (B, 4R) on its own triple, both zero for
+    a true solution however ill conditioned the solve that found it: the
+    largest |vᵀEu| of the triple's three correspondences (unit rays, E
+    scaled to ‖E‖ = 1), and the largest entry of the essential-matrix
+    constraint 2EEᵀE − tr(EEᵀ)E of E scaled so."""
+    from sphericalsfm_tpu_torch.ransac import spherical as sph
+
+    triples, u, v = args[:3]
+    B, R = triples.shape[:2]
+    uu, vv = sph._gather_rows(u, triples), sph._gather_rows(v, triples)
+    uu = uu / uu.norm(dim=-1, keepdim=True)
+    vv = vv / vv.norm(dim=-1, keepdim=True)
+    E = Es.reshape(B, R, 4, 3, 3)
+    E = E / E.flatten(-2).norm(dim=-1).clamp_min(torch.finfo(E.dtype).tiny)[..., None, None]
+    epipolar = torch.einsum("brki,brcij,brkj->brck", vv, E, uu).abs().amax(-1)
+    EEt = E @ E.transpose(-1, -2)
+    trace = EEt.diagonal(dim1=-2, dim2=-1).sum(-1)
+    essential = (2 * EEt @ E - trace[..., None, None] * E).abs().flatten(-2).amax(-1)
+    return epipolar.reshape(B, 4 * R), essential.reshape(B, 4 * R)
+
+
+def round_sensitivity(args, draws=2, seed=0):
+    """How far the plain solve's own candidates move when its rays move by
+    one rounding: for each candidate (B, 4R), the largest distance over
+    `draws` draws (every coordinate of u and v times 1 + kε, k in
+    {-1, 0, 1}) to the nearest candidate of its triple. The solve hangs on
+    rounding where C1ᵀC1 is ill conditioned, near double roots, and in the
+    spurious candidates from a complex pair's real part."""
+    from sphericalsfm_tpu_torch.ransac import spherical as sph
+    from sphericalsfm_tpu_torch.solvers.spherical import solve_spherical_3pt
+
+    triples, u, v = args[:3]
+    B = u.shape[0]
+
+    def solve(uu, vv):
+        Es, _ = solve_spherical_3pt(sph._gather_rows(uu, triples), sph._gather_rows(vv, triples))
+        return Es.reshape(B, -1, 3, 3)
+
+    Ep = solve(u, v)
+    gen = torch.Generator(device=u.device).manual_seed(seed)
+    eps = torch.finfo(u.dtype).eps
+
+    def moved(x):
+        k = torch.randint(-1, 2, x.shape, generator=gen, device=x.device).to(x.dtype)
+        return x * (1 + eps * k)
+
+    out = torch.zeros(Ep.shape[:2], dtype=Ep.dtype, device=Ep.device)
+    for _ in range(draws):
+        out = torch.maximum(out, _nearest_gap(Ep, solve(moved(u), moved(v))))
+    return out
+
+
+def _nearest(Ea, Eb):
+    """For each candidate of Ea (B, 4R, 3, 3), the distance (largest entry)
+    to the nearest candidate of the same triple in Eb, and that candidate's
+    index (B, 4R). Rounding may hand a triple's roots to its four slots in
+    another order (the sign of a rounding-size imaginary part picks the
+    branch of a complex square root), so a triple's candidates are matched
+    as a set."""
+    B, S = Ea.shape[:2]
+    d = (Ea.reshape(B, S // 4, 4, 1, 9) - Eb.reshape(B, S // 4, 1, 4, 9)).abs().amax(-1)
+    gap, j = d.min(-1)
+    first = torch.arange(0, S, 4, device=Ea.device)[None, :, None]
+    return gap.reshape(B, S), (first + j).reshape(B, S)
+
+
+def _nearest_gap(Ea, Eb):
+    return _nearest(Ea, Eb)[0]
+
+
+def _root_flips(Ea, va, ra, Eb, rb, root):
+    """The candidates of Ea (where `va`) that solve their triple, their
+    essential residual `ra` at most `root`, whose nearest candidate of the
+    same triple in Eb does not: its residual `rb` more than 10× theirs, or
+    than `root`."""
+    rb_near = rb.gather(1, _nearest(Ea, Eb)[1])
+    return va & (ra <= root) & (rb_near > 10 * torch.clamp(ra, min=root))
+
+
+# A candidate's |vᵀEu| on its own triple, in ε: at most 5.1e-13 (2,300 ε) for
+# the kernel's 262,144 candidates of four 128 × 128 chunks on an H100, and
+# 1.1e-12 for the plain solve's there.
+ROUND_EPIPOLAR_EPS = 2 ** 14
+# An essential residual of at most this many ε (1.2e-10 in float64) makes a
+# candidate a solution of its triple; the spurious ones, from a complex pair's
+# real part, read 1e-3 to 1.
+ROUND_ROOT_EPS = 2 ** 19
+
+
+def round_agreement(args, k, kc, p, pc, sens, rel=1e-9, tie=1e-9):
+    """The kernel's round `k` (RoundResult) and candidates `kc` against the
+    plain round's `p` (its _Part) and candidates `pc` (round_plain_candidates)
+    on the float64 inputs `args` (round_inputs' tuple), for the active
+    pairs. Candidates: each triple with as many valid; each plain candidate
+    matched to the nearest kernel candidate of its triple (rounding may
+    hand the roots to the slots in another order), at the 50th, 90th, 99th
+    and 99.9th percentiles (those with ten candidates or more above them)
+    no farther than 10× the plain solve's own move under a one-rounding
+    change of its rays (`sens`, round_sensitivity) or 1e-12: the plain
+    solve itself moves by up to ~1 on ill-conditioned triples, so no second
+    implementation matches every candidate. Candidate by candidate, with
+    the plain solve on the CPU as a witness (round_witness): every valid
+    candidate within ROUND_EPIPOLAR_EPS of its own triple's three epipolar
+    constraints (candidate_residuals); the plain solutions whose nearest
+    kernel candidate is no solution (ROUND_ROOT_EPS), and the kernel's
+    solutions whose nearest plain candidate is none, each at most 3× the
+    witness's count and 5; the candidates farther from the plain solve
+    than 10× their own `sens`, at most 4× the witness's count and 10. Every
+    candidate's MSAC score within `rel` relative (or 1e-12 of one capped
+    match) of the plain scoring of the kernel's own E (the score moves with
+    E at up to 1/|vᵀEu| of the inliers). The round: the same best (its E
+    within `rel`) except where the plain round's two lowest scores lie within
+    `tie` relative (or 1e-12 of one capped match); the same keep except
+    there or where the best scores that close to the running one; for
+    pairs both kept with the same best, E within `rel`, the score held as a
+    candidate's and the inlier rows of the kept E (off the threshold, a
+    match within `rel` relative of it); the kernel's kept model its own
+    pick's candidate exactly; and every pair that did not keep (every
+    inactive one) left as it was, bit for bit. Returns (the
+    measures, failures)."""
+    from sphericalsfm_tpu_torch.ransac import spherical as sph
+    from sphericalsfm_tpu_torch.ransac.engine import msac_score
+
+    triples, u, v, mask, E, score, inliers, active, sq = args
+    Ep, vp, sp = pc
+    act = active
+    B = u.shape[0]
+
+    def scored(Es):                     # the plain scoring of candidates (B, S, 3, 3)
+        errs = sph.sampson_error(Es, u[:, None], v[:, None])
+        errs = torch.where(torch.isfinite(errs), errs, torch.full_like(errs, float("inf")))
+        return msac_score(errs, sq, mask[:, None, :]), errs
+
+    def close(a, b):
+        return (a - b).abs() <= rel * b.abs() + 1e-12 * sq
+
+    def pick(Es, i):
+        return Es.gather(1, i[:, None, None, None].expand(-1, 1, 3, 3))[:, 0]
+
+    cand = act[:, None] & vp
+    E_gap = _nearest_gap(Ep, kc.E)[cand]
+    Ew, vw = round_witness(args)
+    eps = torch.finfo(u.dtype).eps
+    root = ROUND_ROOT_EPS * eps
+    ep_k, rE_k = candidate_residuals(args, kc.E)
+    ep_p, rE_p = candidate_residuals(args, Ep)
+    rE_w = candidate_residuals(args, Ew)[1]
+    k_cand, w_cand = act[:, None] & kc.valid, act[:, None] & vw
+
+    def far(Es):                        # candidates farther than 10× their own sens
+        return int((cand & (_nearest_gap(Ep, Es) > torch.clamp(10 * sens, min=1e-12))).sum())
+    # the percentiles with ten candidates or more above them
+    qs = torch.tensor([q for q in (0.5, 0.9, 0.99, 0.999) if (1 - q) * E_gap.numel() >= 10],
+                      dtype=E_gap.dtype, device=E_gap.device)
+    gap_q, sens_q = torch.quantile(E_gap, qs), torch.quantile(sens[cand], qs)
+    both = act[:, None] & kc.valid & vp
+    own_sc = scored(kc.E)[0]
+    ik, ip = torch.argmin(kc.score, -1), torch.argmin(sp, -1)
+    low = torch.topk(sp, 2, dim=-1, largest=False).values
+    pick_tie = (low[:, 1] - low[:, 0]).abs() <= tie * low[:, 0].abs() + 1e-12 * sq
+    pick_gap = (pick(kc.E, ik) - pick(Ep, ip)).abs().flatten(1).amax(-1)
+    best_p = low[:, 0]
+    kept_p = act & (best_p < score)
+    kept_k = act & (k.score < score)
+    keep_tie = ((best_p - score).abs() <= tie * score.abs() + 1e-12 * sq) | pick_tie
+    same = kept_k & kept_p & (pick_gap <= rel)
+    k_sc, k_errs = scored(k.E[:, None])
+    near = ((k_errs[:, 0] - sq).abs() <= rel * sq) | ~torch.isfinite(k_errs[:, 0])
+    k_inl = (k_errs[:, 0] < sq) & mask
+    left = ~kept_k
+    changed = ((k.E != E).flatten(1).any(-1) | (k.score != score)
+               | (k.inliers != inliers).any(-1))
+
+    def worst(x, sel):
+        return float(x[sel].max()) if sel.any() else 0.0
+
+    info = dict(active=int(act.sum()), candidates=int(act.sum()) * kc.valid.shape[1],
+                valid_share=float(vp[act].double().mean()) if act.any() else None,
+                valid_differ=int(((kc.valid.reshape(B, -1, 4).sum(-1)
+                                   != vp.reshape(B, -1, 4).sum(-1)) & act[:, None]).sum()),
+                E_gap_quantiles=gap_q.tolist(), plain_move_quantiles=sens_q.tolist(),
+                E_gap_max=float(E_gap.max()) if E_gap.numel() else 0.0,
+                E_gap_over_rel_share=float((E_gap > rel).double().mean())
+                if E_gap.numel() else 0.0,
+                over_10x_sens=far(kc.E), witness_over_10x_sens=far(Ew),
+                epipolar_max=worst(ep_k, k_cand), plain_epipolar_max=worst(ep_p, cand),
+                roots_lost=int(_root_flips(Ep, cand, rE_p, kc.E, rE_k, root).sum()),
+                witness_roots_lost=int(_root_flips(Ep, cand, rE_p, Ew, rE_w, root).sum()),
+                roots_gained=int(_root_flips(kc.E, k_cand, rE_k, Ep, rE_p, root).sum()),
+                witness_roots_gained=int(_root_flips(Ew, w_cand, rE_w, Ep, rE_p, root).sum()),
+                score_differ=int((~close(kc.score, own_sc) & both).sum()),
+                picks_differ=int(((pick_gap > rel) & act & ~pick_tie).sum()),
+                pick_ties=int((pick_tie & act).sum()),
+                keeps_differ=int(((kept_k != kept_p) & ~keep_tie).sum()),
+                kept=int(kept_k.sum()), kept_both_same_pick=int(same.sum()),
+                kept_E_max_gap=worst((k.E - p.E).abs().flatten(1).amax(-1), same),
+                kept_score_differ=int((~close(k.score, k_sc[:, 0]) & kept_k).sum()),
+                inliers_differ=int(((k.inliers != k_inl) & ~near)[kept_k].sum()),
+                kept_not_own_pick=int((((k.E != pick(kc.E, ik)).flatten(1).any(-1)
+                                        | (k.score != kc.score.gather(1, ik[:, None])[:, 0]))
+                                       & kept_k).sum()),
+                unkept_changed=int((changed & left).sum()))
+    failures = []
+    if info["valid_differ"]:
+        failures.append(f"valid candidates differ in number on {info['valid_differ']} triples")
+    if not bool((gap_q <= torch.clamp(10 * sens_q, min=1e-12)).all()):
+        failures.append(f"candidates differ by {gap_q.tolist()} at the percentiles where the "
+                        f"plain solve moves {sens_q.tolist()}")
+    if not info["epipolar_max"] <= ROUND_EPIPOLAR_EPS * eps:
+        failures.append(f"a candidate misses its triple's epipolar constraints by "
+                        f"{info['epipolar_max']}")
+    for flip in ("lost", "gained"):
+        n, w = info[f"roots_{flip}"], info[f"witness_roots_{flip}"]
+        if n > 3 * w + 5:
+            failures.append(f"{n} solutions of their triple {flip} against the plain "
+                            f"solve, {w} by the witness")
+    if info["over_10x_sens"] > 4 * info["witness_over_10x_sens"] + 10:
+        failures.append(f"{info['over_10x_sens']} candidates beyond 10× the plain solve's own "
+                        f"move, {info['witness_over_10x_sens']} of the witness's")
+    if info["score_differ"]:
+        failures.append(f"{info['score_differ']} candidate scores differ from their E's")
+    if info["picks_differ"]:
+        failures.append(f"the best candidate differs outside ties on {info['picks_differ']} pairs")
+    if info["keeps_differ"]:
+        failures.append(f"the keep differs outside ties on {info['keeps_differ']} pairs")
+    if not info["kept_E_max_gap"] <= rel or info["kept_score_differ"]:
+        failures.append(f"kept models differ by {info['kept_E_max_gap']}, "
+                        f"{info['kept_score_differ']} kept scores from their E's")
+    if info["inliers_differ"]:
+        failures.append(f"{info['inliers_differ']} inlier flags differ off the threshold")
+    if info["kept_not_own_pick"]:
+        failures.append(f"{info['kept_not_own_pick']} kept models are not the kernel's pick")
+    if info["unkept_changed"]:
+        failures.append(f"{info['unkept_changed']} pairs that did not keep changed")
+    return info, failures
+
+
+def run_round_phase(device="cuda", B=128, R=128, N=1024):
+    """The round kernel against the plain round on the card at the main
+    path's chunk (`round_agreement`, 60% of the pairs active), a repeat bit
+    for bit, and the times of both with every pair active beside the
+    kernel's FP64 bound. Returns the phase's line."""
+    from sphericalsfm_tpu_torch.ransac import spherical as sph
+    from sphericalsfm_tpu_torch.ransac.round_kernel import spherical_round
+
+    args = round_inputs(B, R, N, device=device)
+    triples, u, v, mask, E, score, inliers, active, sq = args
+    part = sph._Part(u, v, mask, E, score, inliers)
+    before = spherical_round.launches
+    k, kc = spherical_round(*args, candidates=True)
+    via = sph._round(part, triples, active, sq)
+    p = sph._round_plain(part, triples, active, sq)
+    pc = round_plain_candidates(args)
+    sync(device)
+    launches = spherical_round.launches - before
+    agreement, failures = round_agreement(args, k, kc, p, pc, round_sensitivity(args))
+    again = spherical_round(*args)
+    repeat = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                 for a, b in zip(k, again)) and all(
+        torch.equal(a, b) for a, b in zip(k, (via.E, via.score, via.inliers)))
+    every = torch.ones_like(active)
+    full = (*args[:7], every, sq)
+    info = dict(pairs=B, triples=R, matches=N, dtype="float64", launches=launches,
+                repeat_bit_equal=repeat, valid_rows_mean=float(mask.sum(-1).double().mean()),
+                **agreement)
+    info["ms"] = cuda_ms(lambda: spherical_round(*full))
+    info["ms_active_share_0.6"] = cuda_ms(lambda: spherical_round(*args))
+    info["plain_ms"] = cuda_ms(lambda: sph._round_plain(part, triples, every, sq), reps=3,
+                               warmup=1)
+    kept = int((spherical_round(*full).score < score).sum())
+    flops = round_flops(mask.sum(-1), R, N, kept)
+    info.update(flops=flops, bound_ms=flops / H100_FP64_FLOPS * 1e3, bound_by="operations")
+    info["share_of_bound"] = info["bound_ms"] / info["ms"]
+    if launches != 2:
+        failures.append(f"{launches} launches for two calls")
+    if not repeat:
+        failures.append("the round does not repeat bit for bit")
+    phase("round", **info, failures=failures)
+    if failures:
+        raise RuntimeError("round phase: " + "; ".join(failures))
+    return info
 
 
 class DriverProbe:
@@ -602,7 +1057,6 @@ def run_main_path(two_nn, device="cuda", F=48, W=640, H=480, static=False, phase
     pairs = F * (F - 1) // 2
     # one launch per chunk, or per shard and chunk on a mesh
     chunks = sum(min(max(devices, 1), pairs - s) for s in range(0, pairs, CHUNK))
-    polish_expected = polish_parts(pairs, cfg.ransac.pair_chunk, devices)
     with tempfile.TemporaryDirectory() as out, DriverProbe(device) as probe:
         reset_counts(two_nn)
         t0 = time.perf_counter()
@@ -612,7 +1066,7 @@ def run_main_path(two_nn, device="cuda", F=48, W=640, H=480, static=False, phase
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, routes = two_nn.launches, dict(two_nn.route_launches)
-        polish = polish_launches()
+        polish, rounds = polish_launches(), round_launches()
         with open(os.path.join(out, "poses.txt")) as f:
             poses_txt = f.read()
         missing = [f for f in ("poses.txt", "points.obj", "cameras.obj", "summary.json",
@@ -633,16 +1087,20 @@ def run_main_path(two_nn, device="cuda", F=48, W=640, H=480, static=False, phase
           or k.endswith("_initial_cost") or k.endswith("_iterations")}
     pw = {k: v for k, v in probe.items() if k.startswith("pairwise")}
     counts = [s for s in stages if s["stage"] == "estimate_pairwise"][-1]
+    kernels, kernel_failures = ransac_launches(polish, rounds, counts, pairs,
+                                               cfg.ransac.pair_chunk, devices)
+    name = phase_name or ("static_ransac" if static else "main")
+    ROUND_LAUNCHES[name] = rounds
     info = dict(frames=F, size=f"{W}x{H}", pairs=pairs,
                 engine="static" if static else "adaptive",
                 num_hypotheses=cfg.ransac.num_hypotheses, wall_s=round(wall, 3),
                 render_s=round(render_s, 3), ate=err, median_rel_rot_deg=float(np.median(rel)),
                 points=int(m.point_valid().sum()), summary=summary, launches=launches,
-                route_launches=routes, expected_launches=chunks, polish_launches=polish,
-                expected_polish_launches=polish_expected,
-                **{k: counts.get(k) for k in ("chunks", "polish_iters", "polish_accept_pct")},
+                route_launches=routes, expected_launches=chunks, **kernels,
+                **{k: counts.get(k) for k in ("chunks", "rounds", "active_pct", "polish_iters",
+                                              "polish_accept_pct")},
                 stage_s={s["stage"]: s["seconds"] for s in stages}, ba=ba, **pw)
-    phase(phase_name or ("static_ransac" if static else "main"), **info)
+    phase(name, **info)
     if missing:
         raise AssertionError(f"outputs missing: {missing}")
     if not err < 0.05:
@@ -651,8 +1109,8 @@ def run_main_path(two_nn, device="cuda", F=48, W=640, H=480, static=False, phase
         raise AssertionError(f"median relative rotation error {np.median(rel)} >= 2 deg")
     if launches != chunks or routes["wgmma_bf16"] != chunks:
         raise AssertionError(f"matcher launched {routes}, expected {chunks} bf16 launches")
-    if polish != polish_expected:
-        raise AssertionError(f"polish launched {polish} times, expected {polish_expected}")
+    if kernel_failures:
+        raise AssertionError("; ".join(kernel_failures))
     # the calibrated run's output is the stereo-panorama workflow's input
     return launches, dict(poses_txt=poses_txt, gray=gray, color=color,
                           intrinsics=(focal, W / 2.0, H / 2.0), launches=launches,
@@ -780,9 +1238,6 @@ def sequence_failures(rep, spec, out):
     if rep["launches"] != rep["expected_launches"]:
         failures.append(f"matcher launched {rep['launches']} times, expected "
                         f"{rep['expected_launches']}")
-    if rep["polish_launches"] != rep["expected_polish_launches"]:
-        failures.append(f"polish launched {rep['polish_launches']} times, expected "
-                        f"{rep['expected_polish_launches']}")
     return failures
 
 
@@ -802,16 +1257,23 @@ def run_uncalibrated_phase(two_nn, device="cuda"):
             cfg = suite.sequence_config(specs[name])
             pairs = len(window_pairs(specs[name]["frames"], cfg.frontend.adjacent_window,
                                      cfg.graph.num_frames_begin, cfg.graph.num_frames_end)[0])
-            before = polish_launches()
+            before = polish_launches(), round_launches()
             rep = suite.run_sequence(specs[name], out_root, device)
             rep["expected_launches"] = math.ceil(pairs / CHUNK)
-            rep["polish_launches"] = polish_launches() - before
-            rep["expected_polish_launches"] = polish_parts(pairs, cfg.ransac.pair_chunk)
-            failures = sequence_failures(rep, specs[name], os.path.join(out_root, name))
+            record = [json.loads(line) for line in open(os.path.join(out_root, name,
+                                                                     "stages.jsonl"))
+                      if '"estimate_pairwise"' in line][-1]
+            kernels, kernel_failures = ransac_launches(polish_launches() - before[0],
+                                                       round_launches() - before[1], record,
+                                                       pairs, cfg.ransac.pair_chunk)
+            rep.update(kernels)
+            failures = (sequence_failures(rep, specs[name], os.path.join(out_root, name))
+                        + kernel_failures)
             phase("uncalibrated", **rep, failures=failures)
             if failures:
                 failed[name] = failures
     launches, polish = two_nn.launches, polish_launches()
+    ROUND_LAUNCHES["uncalibrated"] = round_launches()
     if failed:
         raise AssertionError(f"uncalibrated sequences failed: {failed}")
     return launches, polish
@@ -903,8 +1365,10 @@ def run_modes_phase(two_nn, device="cuda", F=24, W=320, H=240, focal=260.0):
         fs = [s for s in stages if s["stage"] == "focal_search"][-1]
         pw = [s for s in stages if s["stage"] == "estimate_pairwise"][-1]
         mode_polish = polish_launches()
-        polish_expected = 0 if mode == "five_point" else pw["chunks"]
-        failures = []
+        pairs = next(s["pairs"] for s in stages if "pairs" in s)
+        kernels, failures = ransac_launches(mode_polish, round_launches(), pw, pairs,
+                                            cfg.ransac.pair_chunk, kernels=mode != "five_point")
+        ROUND_LAUNCHES[f"modes_{mode}"] = round_launches()
         if not err < bound:
             failures.append(f"focal {est} not within {bound:.0%} of {focal}")
         if not ok_files:
@@ -915,8 +1379,6 @@ def run_modes_phase(two_nn, device="cuda", F=24, W=320, H=240, focal=260.0):
             failures.append("matcher never launched")
         if mode == "five_point" and not eig_calls:
             failures.append("the five-point solver never took eig_real_batched")
-        if mode_polish != polish_expected:
-            failures.append(f"polish launched {mode_polish} times, expected {polish_expected}")
         launches += two_nn.launches
         polish += mode_polish
         extra = dict(eig_real_batched_calls=len(eig_calls),
@@ -925,8 +1387,7 @@ def run_modes_phase(two_nn, device="cuda", F=24, W=320, H=240, focal=260.0):
                      wall_s_on_torch_linalg_eig="34-44") if mode == "five_point" else {}
         phase("modes", mode=mode, frames=F, size=f"{W}x{H}", focal_true=focal,
               focal_est=est, focal_rel_err=err, bound=bound, wall_s=round(wall, 3), **extra,
-              launches=two_nn.launches, polish_launches=mode_polish,
-              expected_polish_launches=polish_expected, points=int(m.point_valid().sum()),
+              launches=two_nn.launches, **kernels, points=int(m.point_valid().sum()),
               stage_s={s["stage"]: s["seconds"] for s in stages}, failures=failures)
         if failures:
             failed[mode] = failures
@@ -1550,15 +2011,20 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
     reset_counts(two_nn)
     pw0, secs["pairwise_single_s"] = timed_once(lambda: estimate_pairwise(
         generator(dev, 0), feats0.xy, pi, pj, *m0, intr, device=dev, **pw_kw), dev)
-    single_polish = polish_launches()
+    single_polish, single_rounds = polish_launches(), round_launches()
     reset_counts(two_nn)
     pw1, secs["pairwise_mesh_s"] = timed_once(lambda: estimate_pairwise(
         generator(dev, 0), feats0.xy, pi, pj, *m0, intr, mesh=mesh, **pw_kw), dev)
-    mesh_polish = polish_launches()
-    polish_expected = (polish_parts(len(pi), cfg.ransac.pair_chunk),
-                       polish_parts(len(pi), cfg.ransac.pair_chunk, shards))
-    out.update(single_polish_launches=single_polish, mesh_polish_launches=mesh_polish,
-               expected_polish_launches=polish_expected)
+    mesh_polish, mesh_rounds = polish_launches(), round_launches()
+    ROUND_LAUNCHES["mesh"] = mesh_rounds
+    kernels = {}
+    kernel_failures = []
+    for name, pol, rounds, pw, nd in (("single", single_polish, single_rounds, pw0, 0),
+                                      ("mesh", mesh_polish, mesh_rounds, pw1, shards)):
+        kernels[name], fails = ransac_launches(pol, rounds, pw.counts, len(pi),
+                                               cfg.ransac.pair_chunk, nd)
+        kernel_failures += [f"{name}: {f}" for f in fails]
+    out.update(ransac_launches=kernels)
     rot_diff = np.rad2deg(np.linalg.norm(pw0.r - pw1.r, axis=-1))
     out.update(pairwise_keep_equal=bool((pw0.keep == pw1.keep).all()),
                pairwise_max_inlier_diff=int(np.abs(pw0.num_inliers - pw1.num_inliers).max()),
@@ -1669,9 +2135,7 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
         failures.append(f"sharded matching launched {mesh_routes}, expected {expected} bf16")
     if single_launches != chunks:
         failures.append(f"single-device matching launched {single_launches}, expected {chunks}")
-    if (single_polish, mesh_polish) != polish_expected:
-        failures.append(f"polish launched {single_polish} (single) and {mesh_polish} (mesh) "
-                        f"times, expected {polish_expected}")
+    failures += kernel_failures
     if not (out["pairwise_keep_equal"] and out["pairwise_max_inlier_diff"] <= 3
             and out["pairwise_max_rot_diff_deg"] < 0.1):
         failures.append("sharded pairwise outside the JAX test's bounds")
@@ -1823,7 +2287,6 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
     pairs = len(window_pairs(F, cfg.frontend.adjacent_window, cfg.graph.num_frames_begin,
                              cfg.graph.num_frames_end)[0])
     chunks = math.ceil(pairs / CHUNK)
-    polish_expected = polish_parts(pairs, cfg.ransac.pair_chunk)
 
     graph = {}
     real = driver.optimize_rotations
@@ -1847,7 +2310,7 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
         finally:
             driver.optimize_rotations = real
         launches, routes = two_nn.launches, dict(two_nn.route_launches)
-        polish = polish_launches()
+        polish, rounds = polish_launches(), round_launches()
         ba_solves = dict(ba.bundle_adjust.solves)
         pg_solves = dict(pose_graph.optimize_rotations.solves)
         trace = os.path.join(cfg.profile_dir, "trace.json")
@@ -1868,6 +2331,10 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
     R = np_so3_exp(m.cam_r)
     rel = rotation_error_deg(np.einsum("nij,kj->nik", R, R[0]),
                              np.einsum("nij,kj->nik", R_gt, R_gt[0])).numpy()
+    record = [s for s in stages if s["stage"] == "estimate_pairwise"][-1]
+    kernels, kernel_failures = ransac_launches(polish, rounds, record, pairs,
+                                               cfg.ransac.pair_chunk)
+    ROUND_LAUNCHES["long_capture"] = rounds
     ba_passes = {}
     for s in stages:
         for k in range(1, 5):
@@ -1902,8 +2369,7 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
     phase("long_capture", frames=F, size=f"{W}x{H}", pairs=pairs, render_s=round(render_s, 3),
           wall_s=round(wall, 3), ate=err, median_rel_rot_deg=float(np.median(rel)),
           points=int(m.point_valid().sum()), launches=launches, route_launches=routes,
-          expected_launches=chunks, polish_launches=polish,
-          expected_polish_launches=polish_expected, ba_solves=ba_solves,
+          expected_launches=chunks, **kernels, ba_solves=ba_solves,
           rotation_solves=pg_solves,
           ba=ba_passes, stage_s={s["stage"]: s["seconds"] for s in stages},
           trace_bytes=trace_bytes, trace=busy, focal_mult=mult, focal_graph_s=focal_s,
@@ -1917,8 +2383,7 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
         failures.append(f"median relative rotation error {np.median(rel)} >= 2 deg")
     if launches != chunks or routes["wgmma_bf16"] != chunks:
         failures.append(f"matcher launched {routes}, expected {chunks} bf16 launches")
-    if polish != polish_expected:
-        failures.append(f"polish launched {polish} times, expected {polish_expected}")
+    failures += kernel_failures
     if ba_solves != {"dense": 0, "pcg": 4}:
         failures.append(f"BA passes by solver {ba_solves}, expected 4 on the PCG")
     if pg_solves != {"dense": 0, "pcg": 1}:
@@ -1965,6 +2430,8 @@ def main() -> int:
     phase("kernel", **k)
     del tables
     pol = run_polish_phase()
+    rnd = run_round_phase()
+    ROUND_LAUNCHES["round"] = rnd["launches"]
 
     main_launches, workflow = run_main_path(two_nn)
     launches = {"main": main_launches}
@@ -2033,6 +2500,18 @@ def main() -> int:
         **{key: pol[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "shape": f"{pol['pairs']}x{pol['matches']} float64",
         "launches_by_phase": polish,
+    })
+    kernels.append({
+        "name": "spherical_round",
+        "route": "cuda",
+        "source": "sphericalsfm_tpu_torch/csrc/spherical_round.cu",
+        "replaces": "sphericalsfm_tpu/ransac/spherical.py (plain XLA, no Pallas kernel)",
+        "launches": ROUND_LAUNCHES["main"],
+        "launches_path": "main",
+        "E_gap_quantiles": rnd["E_gap_quantiles"],
+        **{key: rnd[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "shape": f"{rnd['pairs']}x{rnd['triples']}x{rnd['matches']} float64",
+        "launches_by_phase": ROUND_LAUNCHES,
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -30,11 +30,11 @@ the port's own spans (`tracing`): the leaves `stage:pairwise.*`,
 `call:ba.iteration`. The `rotation_init` (calibrated) and `focal_search`
 (uncalibrated) records hold the rotation LM's solver and its LM and CG
 iterations (`solver`, `iterations`, `pcg_iterations`). The
-`estimate_pairwise` record counts the RANSAC chunks, rounds and the share
-of pair-rounds spent on pairs still running (`chunks`, `rounds`,
-`active_pct`), and the final polish's mean LM
-iterations a pair and share of pairs whose polished model was kept
-(`polish_iters`, `polish_accept_pct`). `device=None` means
+`estimate_pairwise` record counts the RANSAC chunks, rounds, the share
+of pair-rounds spent on pairs still running and the round kernel's
+launches (`chunks`, `rounds`, `active_pct`, `round_launches`), and the
+final polish's mean LM iterations a pair and share of pairs whose polished
+model was kept (`polish_iters`, `polish_accept_pct`). `device=None` means
 CUDA and raises when no card is present; the CPU path runs only when the
 caller passes `device="cpu"`. Random streams come from `torch.Generator`s
 seeded where the JAX driver seeds `PRNGKey(0)` (pairwise RANSAC) and folds

@@ -20,6 +20,7 @@ import torch
 from ..device import GEOM_DTYPE
 from ..geometry.pose import Intrinsics
 from ..ransac.general_essential import general_essential_ransac
+from ..ransac.round_kernel import spherical_round
 from ..ransac.spherical import spherical_ransac, spherical_ransac_adaptive
 from ..tracing import span
 
@@ -36,8 +37,10 @@ class PairwiseResult(NamedTuple):
     # {chunks}; with the spherical engines {polish_iters, polish_accept_pct}:
     # the mean LM iterations of the final polish a pair, and the pairs whose
     # polished model replaced the RANSAC best, in %; and with the adaptive
-    # engine {rounds, active_pct}: rounds summed over chunks, and the
-    # pair-rounds of pairs still running over the pair-rounds computed, in %
+    # engine {rounds, active_pct, round_launches}: rounds summed over chunks,
+    # the pair-rounds of pairs still running over the pair-rounds computed,
+    # in %, and the round kernel's launches (rounds × parts on CUDA, 0 on
+    # the CPU)
     counts: dict
 
 
@@ -85,6 +88,7 @@ def estimate_pairwise(
         devices = mesh.devices
 
     outs = []
+    launches = spherical_round.launches
     for s in range(0, P, chunk_size):
         e = min(s + chunk_size, P)
         with span("call:ransac.chunk"):
@@ -100,7 +104,10 @@ def estimate_pairwise(
             else:
                 outs.append(spherical_ransac(*args, num_hypotheses=num_hypotheses,
                                              inward=inward, devices=devices))
-    return _gather_results(outs, pair_i, pair_j, match_mask, min_num_inliers)
+    res = _gather_results(outs, pair_i, pair_j, match_mask, min_num_inliers)
+    if adaptive:
+        res.counts["round_launches"] = spherical_round.launches - launches
+    return res
 
 
 def _rays_and_threshold(points, pair_i, pair_j, idx0, idx1, intrinsics, inlier_threshold_px):

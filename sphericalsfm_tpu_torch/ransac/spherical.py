@@ -16,9 +16,20 @@ have finished (ROADMAP C6). With `devices` (a mesh's), the pairs split
 over those devices after every draw, which is made for the whole batch
 first, so a sharded run draws what a single-device run draws.
 
+Both engines go through one round (`_round`): the solve of a batch of
+triples, the scoring of their candidates, the MSAC best and its keep where
+it beats each active pair's running best. On CUDA tensors that is one
+launch of the hand-written kernel `csrc/spherical_round.cu` per part
+(`round_kernel.py`); on CPU tensors the plain PyTorch round
+(`_round_plain`), its reference. The adaptive engine runs one round per
+pass with the pairs still running active; the static engine runs its
+whole budget of triples with every pair active, in one round on CUDA and
+in blocks that bound the plain round's memory on the CPU.
+
 Under a profiler (`tracing`) each adaptive round is a `call:ransac.round`
-span holding the leaves `stage:ransac.sample`, `.solve`, `.score` and
-`.stop` (the stop test and its read-back, where the host waits); the
+span holding the leaves `stage:ransac.sample`, the round's work
+(`stage:ransac.round_kernel` on CUDA; `.solve` and `.score` on the CPU)
+and `.stop` (the stop test and its read-back, where the host waits); the
 static engine's phases take the same leaves, and the common tail is
 `stage:ransac.refit` then `stage:ransac.polish`.
 
@@ -44,9 +55,10 @@ from ..solvers.spherical import solve_spherical_3pt
 from ..tracing import span
 from .engine import best_model, join_rows, msac_score, sample_tuples, split_rows
 from .polish_kernel import PolishResult, spherical_polish
+from .round_kernel import spherical_round
 
-# candidates × correspondences of one scoring block of the static engine
-# (2**25 float64 errors: ~0.27 GB, its Sampson temporaries ~2 GB)
+# candidates × correspondences of one plain round of the static engine on the
+# CPU (2**25 float64 errors: ~0.27 GB, its Sampson temporaries ~2 GB)
 _SCORE_BLOCK_ELEMS = 2 ** 25
 
 
@@ -143,6 +155,41 @@ def _keep_better(part: _Part, E_r, sc, inl, where=None) -> _Part:
                          inliers=torch.where(better[:, None], inl, part.inliers))
 
 
+def _round_plain(part: _Part, triples, active, sq_thresh) -> _Part:
+    """One round in plain PyTorch, the kernel's reference: the 3-point
+    solve of the triples (B, R, 3), the MSAC best of their 4R candidates,
+    kept where it scores strictly lower than the running best, only for
+    the pairs whose `active` (B,) is set."""
+    B = part.u.shape[0]
+    with span("stage:ransac.solve"):
+        Es, valid = solve_spherical_3pt(_gather_rows(part.u, triples),
+                                        _gather_rows(part.v, triples))
+    with span("stage:ransac.score"):
+        E_r, sc, inl = _score_candidates(Es.reshape(B, -1, 3, 3), valid.reshape(B, -1), part.u,
+                                         part.v, sq_thresh, part.mask)
+        return _keep_better(part, E_r, sc, inl, where=active)
+
+
+def _round(part: _Part, triples, active, sq_thresh) -> _Part:
+    """One round: the plain path on CPU tensors, else the kernel, which
+    raises on what it does not take."""
+    if part.u.device.type == "cpu":
+        return _round_plain(part, triples, active, sq_thresh)
+    with span("stage:ransac.round_kernel"):
+        E, score, inliers = spherical_round(
+            *(x.contiguous() for x in (triples, part.u, part.v, part.mask, part.E, part.score,
+                                       part.inliers, active)), sq_thresh)
+    return part._replace(E=E, score=score, inliers=inliers)
+
+
+def _start(u, v, mask) -> _Part:
+    """A part with no model yet: E zero, score +inf, no inliers."""
+    B, N, _ = u.shape
+    return _Part(u, v, mask, torch.zeros((B, 3, 3), dtype=u.dtype, device=u.device),
+                 torch.full((B,), float("inf"), dtype=u.dtype, device=u.device),
+                 torch.zeros((B, N), dtype=torch.bool, device=u.device))
+
+
 def _refit_and_polish(gen, parts, home, sq_thresh, inward: bool, final_least_squares: bool,
                       refine_iters: int, lo_rounds: int, nonminimal_size: int, rounds,
                       devices=None) -> SphericalRansacResult:
@@ -212,23 +259,20 @@ def spherical_ransac(
 def _spherical_ransac_body(gen, triples, u, v, mask, sq_thresh, inward, final_least_squares,
                            lo_rounds, nonminimal_size, refine_iters,
                            devices=None) -> SphericalRansacResult:
-    """The static engine from its sampled triples (B, M, 3). Candidates are
-    scored in blocks; the running best moves only on a strictly lower
-    score, so the lowest candidate index wins ties, as one argmin would."""
+    """The static engine from its sampled triples (B, M, 3): rounds with
+    every pair active, all M triples in one on CUDA, in blocks of
+    `_SCORE_BLOCK_ELEMS` candidates × correspondences on the CPU. The
+    running best moves only on a strictly lower score, so the lowest
+    candidate index wins ties, as one argmin would."""
     parts = []
     for uu, vv, mm, tr in zip(*(split_rows(x, devices) for x in (u, v, mask, triples))):
         B, N, _ = uu.shape
-        with span("stage:ransac.solve"):
-            Es, valid = solve_spherical_3pt(_gather_rows(uu, tr), _gather_rows(vv, tr))
-            Es, valid = Es.reshape(B, -1, 3, 3), valid.reshape(B, -1)  # (B, 4M, ...)
-        block = max(1, _SCORE_BLOCK_ELEMS // max(B * N, 1))
-        part = None
-        with span("stage:ransac.score"):
-            for s in range(0, Es.shape[1], block):
-                E_r, sc, inl = _score_candidates(Es[:, s:s + block], valid[:, s:s + block], uu,
-                                                 vv, sq_thresh, mm)
-                part = (_Part(uu, vv, mm, E_r, sc, inl) if part is None
-                        else _keep_better(part, E_r, sc, inl))
+        block = (tr.shape[1] if uu.is_cuda
+                 else max(1, _SCORE_BLOCK_ELEMS // max(4 * B * N, 1)))      # triples a round
+        part = _start(uu, vv, mm)
+        every = torch.ones(B, dtype=torch.bool, device=uu.device)
+        for s in range(0, tr.shape[1], block):
+            part = _round(part, tr[:, s:s + block], every, sq_thresh)
         parts.append(part)
     no_rounds = torch.zeros(u.shape[0], dtype=torch.int64, device=u.device)
     return _refit_and_polish(gen, parts, u.device, sq_thresh, inward, final_least_squares,
@@ -269,15 +313,12 @@ def spherical_ransac_adaptive(
 
     parts, counters = [], []
     for uu, vv, mm in zip(*(split_rows(x, devices) for x in (u, v, mask))):
-        B, N, _ = uu.shape
-        dtype, dev = uu.dtype, uu.device
-        parts.append(_Part(uu, vv, mm, torch.zeros((B, 3, 3), dtype=dtype, device=dev),
-                           torch.full((B,), float("inf"), dtype=dtype, device=dev),
-                           torch.zeros((B, N), dtype=torch.bool, device=dev)))
+        B = uu.shape[0]
+        parts.append(_start(uu, vv, mm))
         # valid count, hypotheses done, rounds done
-        counters.append((torch.clamp(mm.sum(-1), min=3).to(dtype),
-                         torch.zeros(B, dtype=torch.int64, device=dev),
-                         torch.zeros(B, dtype=torch.int64, device=dev)))
+        counters.append((torch.clamp(mm.sum(-1), min=3).to(uu.dtype),
+                         torch.zeros(B, dtype=torch.int64, device=uu.device),
+                         torch.zeros(B, dtype=torch.int64, device=uu.device)))
 
     def still_running(q, c):
         n_valid, done_h, rnd = c
@@ -294,16 +335,9 @@ def spherical_ransac_adaptive(
             with span("stage:ransac.sample"):
                 triples = split_rows(sample_tuples(gen, mask, round_size, 3), devices)  # (B, R, 3)
             for i, (q, c, act, tr) in enumerate(zip(parts, counters, active, triples)):
-                B = q.u.shape[0]
-                with span("stage:ransac.solve"):
-                    Es, valid = solve_spherical_3pt(_gather_rows(q.u, tr), _gather_rows(q.v, tr))
-                with span("stage:ransac.score"):
-                    E_r, sc, inl = _score_candidates(Es.reshape(B, -1, 3, 3),
-                                                     valid.reshape(B, -1), q.u, q.v, sq_thresh,
-                                                     q.mask)
-                    parts[i] = _keep_better(q, E_r, sc, inl, where=act)
-                    step = act.to(torch.int64)
-                    counters[i] = (c[0], c[1] + step * round_size, c[2] + step)
+                parts[i] = _round(q, tr, act, sq_thresh)
+                step = act.to(torch.int64)
+                counters[i] = (c[0], c[1] + step * round_size, c[2] + step)
             active, running = stop_test()
 
     return _refit_and_polish(gen, parts, u.device, sq_thresh, inward, final_least_squares,
