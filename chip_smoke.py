@@ -2,46 +2,31 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure raises and the exit code is
-non-zero):
+Each kernel's contract on the card (its inputs, its agreement with the
+plain PyTorch path, its bound, its launches per path) is a section of
+sphericalsfm_tpu_torch/eval/kernel_checks.py, which the tests share; the
+phases below hold the kernels to it. Phases (each prints one line; any
+failure raises and the exit code is non-zero):
   1. device  — require CUDA, TF32 off, print the card's name and power limit;
   2. build   — compile every CUDA source of the port with nvcc, all at
                once: csrc/two_nn_wgmma.cu (bf16, the main path's matcher),
                csrc/two_nn.cu (float32 FMAs, the matcher's exact checker),
                csrc/spherical_polish.cu (RANSAC's final rotation polish) and
                csrc/spherical_round.cu (one adaptive RANSAC round);
-  3. kernel  — both kernels against their plain PyTorch version on the card
-               at 32 pairs × 1024 (the main path's chunk) and 32 pairs ×
-               4000 (the default keypoint count), and on a ragged 8 × 1000
-               case with invalid rows: bf16 distances to atol 1e-4 with
-               identical indices where the plain version's m2 − m1 > 2e-4,
-               float32 to atol 1e-5 with identical indices, +inf on invalid
-               queries, bf16 ratio-test agreement with float32 > 0.99; then,
-               at both shapes, the bf16 kernel's time beside the plain
-               version's, a library yardstick's (bf16 torch.bmm → 2 − 2·ip +
-               bias → torch.topk) and its tensor-core bound, and the float32
-               kernel's time beside the same yardstick in float32 (TF32 off)
-               and its FP32 bound;
-  3a. polish — the final-polish kernel against the plain PyTorch path on
-               the card at the main path's chunk (128 pairs × 1024 matches,
-               30–70% outliers, float64), `polish_agreement`: LM iterations
-               equal on ≥ 99% of pairs, the rotations of those pairs within
-               1e-9 relative, the accepted flags equal but at ties, the
-               inlier rows equal off the threshold, the kept scores and
-               models within 1e-9, model and score untouched where not
-               accepted; the kernel's time beside the plain path's and its
-               FP64 bound (`polish_flops`), and its launches;
-  3b. round  — the RANSAC round kernel against the plain PyTorch round on
-               the card at the main path's chunk (128 pairs × 128 triples ×
-               1024 matches, half to all of them valid, 30–70% outliers,
-               float64, 60% of the pairs active), `round_agreement`: the
-               candidates no farther apart, percentile by percentile, than
-               the plain solve moves under a one-rounding change of its rays
-               (`round_sensitivity`), every MSAC score that of its own E
-               within 1e-9, the same best and keep outside ties, the kept
-               models, scores and inlier rows alike, inactive pairs untouched; a
-               repeat bit for bit; the kernel's time with every pair active
-               beside the plain round's and its FP64 bound (`round_flops`);
+  3. kernel  — both matchers against their plain version on the card
+               (`KERNEL_CASES`, `MATCH_TOL`, `plain_check`), bf16 ratio-test
+               agreement with float32 > 0.99; then at 32 × 1024 and 32 ×
+               4000 each route's time beside the plain version's, the
+               library yardstick's and its bound (`time_kernel`);
+  3a. polish — the final-polish kernel against the plain path at the main
+               path's chunk (128 pairs × 1024 matches, float64,
+               `polish_agreement`), one launch; its time beside the plain
+               path's and its FP64 bound (`polish_flops`);
+  3b. round  — the round kernel against the plain round at the main path's
+               chunk (128 pairs × 128 triples × 1024 matches, float64, 60%
+               of the pairs active, `round_agreement`), a repeat bit for bit;
+               its time with every pair active beside the plain round's and
+               its FP64 bound (`round_flops`);
   4. main    — the calibrated driver on a rendered 48-frame 640×480 capture
                (focal 512, 1024 keypoints, exhaustive matching of 1128
                pairs); ATE < 0.05, median relative rotation error < 2°,
@@ -49,10 +34,7 @@ non-zero):
                one polish launch per 128-pair RANSAC chunk (9) and one round
                launch a round. The pairwise stage's seconds and peak device
                memory. Every phase that runs pairwise RANSAC below holds its
-               kernels the same way (`ransac_launches`): the polish one a
-               part of each chunk, the round kernel rounds × parts (the
-               stage record's `round_launches` too; the static engine one a
-               part of each chunk, the five-point none).
+               kernels' launches the same way (`ransac_launches`).
   4a. determinism — ROADMAP C26: the main phase's frames detected twice
                (1024 keypoints) and its rotation graph averaged twice by the
                dense solver and twice by the PCG, each pair bit for bit.
@@ -170,25 +152,22 @@ non-zero):
                pairs), cold, with cfg.profile_dir: ATE < 0.05, median
                relative rotation error < 2°, rotation averaging and all
                four BA passes on the PCG (counted), 79 matcher launches,
-               every output file, a non-empty trace (device busy share read
-               from it); then the joint rotations + focal graph on the run's
+               every output file, a non-empty trace (its device busy share
+               by sfmbench.trace.reduce_trace); then the joint rotations + focal graph on the run's
                rotation graph from multiplier 1.0 in [0.5, 2.0] with the PCG
                and the dense solve, on the measured relative rotations and
                on the ground truth's: the two solvers' multipliers within
                1e-3 of each other on both, and within 1% of 1.0 on the
                ground truth's (the measured edges of 1.3° and 2° come out
                3–6% short, so the measured graph's optimum is ~1.036).
-Then one JSON line describing the kernels: the two matchers (launches per
-phase, times and bound at both shapes), the polish and the round kernel (each
-one's launches on the main path and by phase, and its phase's times and
-bound), the card's
-name and power limit, and last the result line {"ok": true, "device":
-{...}}. The script imports nothing of JAX.
+Then one JSON line describing the four kernels (`kernel_record`: each
+one's launches on its path and by phase, its phase's times and bound), the
+card's name and power limit, and last the result line {"ok": true,
+"device": {...}}. The script imports nothing of JAX.
 """
 
 from __future__ import annotations
 
-import inspect
 import json
 import math
 import os
@@ -200,6 +179,11 @@ import time
 import numpy as np
 import torch
 
+from sphericalsfm_tpu_torch.eval import kernel_checks as kc
+from sphericalsfm_tpu_torch.ops.matching_kernel import two_nearest_neighbors, two_nn_reference
+from sphericalsfm_tpu_torch.ransac.polish_kernel import spherical_polish
+from sphericalsfm_tpu_torch.ransac.round_kernel import spherical_round
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHUNK = 32  # pairs per matcher launch on the main path
 
@@ -208,131 +192,55 @@ def phase(phase_name: str, **info):
     print(json.dumps({"phase": phase_name, **info}), flush=True)
 
 
-def sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+def launch_counts() -> dict:
+    """The port's kernel launch counters as they stand: the matcher's
+    (`two_nn`) and its routes' (`wgmma_bf16`, `fma_f32`), the final
+    polish's (`polish`) and the RANSAC round's (`round`)."""
+    return dict(two_nn=two_nearest_neighbors.launches, **two_nearest_neighbors.route_launches,
+                polish=spherical_polish.launches, round=spherical_round.launches)
 
 
-def reset_counts(two_nn):
-    """Zero the matcher's launch counts, the final polish's and the RANSAC
-    round's."""
-    from sphericalsfm_tpu_torch.ransac.polish_kernel import spherical_polish
-    from sphericalsfm_tpu_torch.ransac.round_kernel import spherical_round
-
-    two_nn.launches = 0
-    two_nn.route_launches.update(dict.fromkeys(two_nn.route_launches, 0))
-    spherical_polish.launches = 0
-    spherical_round.launches = 0
+def launches_since(before: dict) -> dict:
+    """The launches of each kernel since `before` (a `launch_counts()`)."""
+    return {k: n - before[k] for k, n in launch_counts().items()}
 
 
-def polish_launches() -> int:
-    from sphericalsfm_tpu_torch.ransac.polish_kernel import spherical_polish
-
-    return spherical_polish.launches
+def route_launches(n: dict) -> dict:
+    return {route: n[route] for route in two_nearest_neighbors.route_launches}
 
 
-def round_launches() -> int:
-    from sphericalsfm_tpu_torch.ransac.round_kernel import spherical_round
-
-    return spherical_round.launches
-
-
-# the round kernel's launches by phase, each checked there
-ROUND_LAUNCHES: dict = {}
+def bf16_launch_failures(n: dict, chunks: int) -> list:
+    """The matcher's launches `n` against `chunks` bf16 launches and no
+    other."""
+    if n["two_nn"] != chunks or n["wgmma_bf16"] != chunks:
+        return [f"matcher launched {route_launches(n)}, expected {chunks} bf16 launches"]
+    return []
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device milliseconds per call: the card first sleeps while the host
-    queues every call, so host overhead between calls is not timed."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def descriptor_table(seed: int, pairs: int, K: int, noise: float = 0.05):
-    """Frame table for `pairs` pairs: frame b (train) against frame pairs+b
-    (queries: a permuted, noisy copy), unit-norm float32 descriptors."""
-    rng = np.random.default_rng(seed)
-    d0 = rng.normal(size=(pairs, K, 128)).astype(np.float32)
-    d0 /= np.linalg.norm(d0, axis=-1, keepdims=True)
-    d1 = d0[:, rng.permutation(K)] + rng.normal(size=(pairs, K, 128)).astype(np.float32) * noise
-    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
-    return np.concatenate([d0, d1]), torch.arange(pairs), torch.arange(pairs) + pairs
-
-
-# (name, pairs, K, share of invalid rows): the main path's chunk, the
-# default keypoint count, and a ragged case
-KERNEL_CASES = (("32x1024", 32, 1024, 0.0), ("32x4000", 32, 4000, 0.0),
-                ("ragged1000", 8, 1000, 0.05))
-# (dtype, distance tolerance, index gap): bf16 inputs with f32 sums taken in
-# another order than the plain version's; float32 sums in another order
-TOLERANCES = ((torch.bfloat16, 1e-4, 2e-4), (torch.float32, 1e-5, 1e-5))
-H100_BF16_FLOPS = 989e12   # dense, 700 W (NVIDIA's data sheet)
-H100_FP32_FLOPS = 67e12    # outside the tensor cores, 700 W (the same sheet)
-H100_FP64_FLOPS = 33.5e12  # FP64 outside the tensor cores, 700 W (the same sheet)
-H100_HBM_BYTES = 3.35e12
-
-
-def compare_two_nn(name, got, ref, qvalid, atol, gap):
-    """Distances to `atol` on valid queries, identical indices where the
-    plain version's m2 − m1 > gap, +inf on invalid queries. Returns the
-    largest distance error."""
-    (m1, m2, nn), (r1, r2, rn) = got, ref
-    err = max(float((m1[qvalid] - r1[qvalid]).abs().max()),
-              float((m2[qvalid] - r2[qvalid]).abs().max()))
-    sep = qvalid & (r2 - r1 > gap)
-    same_idx = bool(torch.equal(nn[sep], rn[sep]))
-    inv_ok = bool(torch.isinf(m1[~qvalid]).all() and torch.isinf(m2[~qvalid]).all())
-    if not err <= atol or not same_idx or not inv_ok:
-        raise AssertionError(f"kernel != plain version on {name}: max err {err}, "
-                             f"indices equal {same_idx}, invalid queries inf {inv_ok}")
-    return err
-
-
-def accepted(out, qvalid, ratio=0.75):
-    m1, m2, nn = out
-    return (m1 < ratio * ratio * m2) & torch.isfinite(m1) & qvalid, nn
-
-
-def match_agreement(a, b, qvalid):
-    """|∩| / |∪| of the ratio-test-accepted (pair, query, train) matches."""
-    (acc_a, nn_a), (acc_b, nn_b) = accepted(a, qvalid), accepted(b, qvalid)
-    both = int((acc_a & acc_b & (nn_a == nn_b)).sum())
-    return both, int(acc_a.sum()) + int(acc_b.sum()) - both
-
-
-def check_kernel(two_nn, reference, device="cuda"):
-    """Both kernels against the plain version on every case, and bf16
-    against float32 on the ratio test. Returns the summary and the cases'
-    tables (bf16 copies for timing)."""
+def check_kernel(device="cuda"):
+    """Both matcher kernels against the plain version on every case, and
+    bf16 against float32 on the ratio test. Returns the summary and the
+    cases' tables (bf16 copies for timing)."""
     dev = torch.device(device)
-    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    worst = dict.fromkeys(kc.MATCH_TOL, 0.0)
     cases, tables = [], {}
-    for seed, (name, pairs, K, drop) in enumerate(KERNEL_CASES):
-        desc, pi, pj = descriptor_table(seed, pairs, K)
+    for seed, (name, pairs, K, drop) in enumerate(kc.KERNEL_CASES):
+        desc, pi, pj = kc.descriptor_table(seed, pairs, K)
         rng = np.random.default_rng(10 + seed)
         valid = torch.as_tensor(rng.uniform(size=desc.shape[:2]) >= drop, device=dev)
         desc_t = torch.as_tensor(desc, device=dev)
         pi, pj = pi.to(dev), pj.to(dev)
         qvalid = valid[pj]
         outs, errs = {}, {}
-        for dtype, atol, gap in TOLERANCES:
-            outs[dtype] = two_nn(desc_t, valid, pi, pj, dtype)
-            ref = reference(desc_t, valid, pi, pj, dtype)
-            sync(dev)
-            errs[str(dtype)[6:]] = compare_two_nn(f"{name} {dtype}", outs[dtype], ref, qvalid,
-                                                  atol, gap)
-            worst[dtype] = max(worst[dtype], errs[str(dtype)[6:]])
-            del ref
-        both, union = match_agreement(outs[torch.bfloat16], outs[torch.float32], qvalid)
+        for dtype in kc.MATCH_TOL:
+            outs[dtype] = two_nearest_neighbors(desc_t, valid, pi, pj, dtype)
+            check = kc.plain_check(outs[dtype], two_nn_reference(desc_t, valid, pi, pj, dtype),
+                                   qvalid, dtype)
+            if not check["ok"]:
+                raise AssertionError(f"kernel != plain version on {name} {dtype}: {check}")
+            errs[str(dtype)[6:]] = check["max_abs_err"]
+            worst[dtype] = max(worst[dtype], check["max_abs_err"])
+        both, union = kc.match_agreement(outs[torch.bfloat16], outs[torch.float32], qvalid)
         agree = both / max(union, 1)
         if not agree > 0.99:
             raise AssertionError(f"{name}: bf16 ratio-test agreement {agree:.4f} <= 0.99")
@@ -343,646 +251,80 @@ def check_kernel(two_nn, reference, device="cuda"):
                 cases=cases), tables
 
 
-def library_two_nn(desc, valid, pair_i, pair_j):
-    """Yardstick for the kernels' time, never called by the port: torch.bmm
-    in the table's dtype (bf16, or float32 with TF32 off as the port sets
-    it) on the gathered copies → 2 − 2·ip + bias → torch.topk."""
-    pi, pj = pair_i.long(), pair_j.long()
-    ip = torch.bmm(desc[pj], desc[pi].transpose(1, 2)).float()
-    bias = torch.where(valid[pi], 0.0, float("inf"))
-    vals, inds = torch.topk(2.0 - 2.0 * ip + bias[:, None, :], 2, dim=-1, largest=False)
-    m1, m2 = vals[..., 0], vals[..., 1]
-    idx = torch.where(torch.isfinite(m1), inds[..., 0], -1).to(torch.int32)
-    qvalid = valid[pj]
-    return (torch.where(qvalid, m1, float("inf")), torch.where(qvalid, m2, float("inf")), idx)
-
-
-def two_nn_bound(desc, valid, pair_i, pair_j, peak=H100_BF16_FLOPS, elem_bytes=2):
-    """Least time on an H100 for the function on these inputs: the larger
-    of its operations over `peak` (the bf16 tensor cores by default) and
-    its bytes (each frame's descriptors of `elem_bytes` and validity read
-    once, pair lists read, outputs written once) over the memory rate.
-    Returns (ms, bound_by)."""
-    P, K = pair_i.numel(), desc.shape[1]
-    frames = torch.unique(torch.cat([pair_i, pair_j])).numel()
-    ops = 2.0 * P * K * K * desc.shape[2]
-    nbytes = frames * K * (desc.shape[2] * elem_bytes + 1) + 2 * P * 4 + P * K * 12
-    t_ops, t_bytes = ops / peak, nbytes / H100_HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-
-
-def two_nn_f32_bound(desc, valid, pair_i, pair_j):
-    """The float32 route's bound: its operations on the FP32 pipe (67
-    TFLOP/s), 4 B a descriptor element."""
-    return two_nn_bound(desc, valid, pair_i, pair_j, H100_FP32_FLOPS, 4)
-
-
-def time_kernel(two_nn, reference, args):
-    """At one shape: the bf16 kernel, the float32 FMA kernel, the plain
-    version and the library yardstick in bf16 and in float32 (TF32 off, as
-    resolve_device("cuda") sets it), in turns (each timed twice, the
-    minimum reported), and both routes' bounds."""
-    desc, valid, pi, pj = args
-    desc32 = desc.float()
-    # the main path checks its pair list once per match_pairs call, not per
-    # launch; an older checkout timed by scripts/bench_two_nn.py --root has
-    # no such switch and is timed with its per-launch check
-    kw = {"check_pairs": False} if "check_pairs" in inspect.signature(two_nn).parameters else {}
-    fns = dict(
-        ms=lambda: two_nn(desc, valid, pi, pj, torch.bfloat16, **kw),
-        fma_f32_ms=lambda: two_nn(desc32, valid, pi, pj, torch.float32, **kw),
-        plain_ms=lambda: reference(desc, valid, pi, pj, torch.bfloat16),
-        plain_f32_ms=lambda: reference(desc32, valid, pi, pj, torch.float32),
-        library_ms=lambda: library_two_nn(desc, valid, pi, pj),
-        library_f32_ms=lambda: library_two_nn(desc32, valid, pi, pj),
-    )
-    order = ["plain_ms", "ms", "fma_f32_ms", "library_ms", "library_f32_ms", "plain_f32_ms"]
-    runs = {k: [] for k in order}
-    for k in order + order[::-1]:
-        runs[k].append(cuda_ms(fns[k], reps=20 if k in ("ms", "plain_ms", "library_ms") else 10))
-    out = {k: min(v) for k, v in runs.items()}
-    out["bound_ms"], out["bound_by"] = two_nn_bound(desc, valid, pi, pj)
-    out["share_of_bound"] = out["bound_ms"] / out["ms"]
-    out["f32_bound_ms"], out["f32_bound_by"] = two_nn_f32_bound(desc, valid, pi, pj)
-    out["f32_share_of_bound"] = out["f32_bound_ms"] / out["fma_f32_ms"]
-    out["runs"] = runs
-    return out
-
-
-# Floating-point operations a match of the final polish (csrc/spherical_polish.cu),
-# counted from its arithmetic; a dual number is a value and 3 tangents, so a
-# dual × scalar is 4 products, a dual sum 4 sums, a dual product 10 and a
-# dual quotient 10 operations.
-POLISH_JACOBIAN_FLOPS = 213  # E u and Eᵀv's first two (5 rows × (3 dual × scalar + 2 dual
-#                              sums) = 100), vᵀEu (20), the denominator (4 dual squares
-#                              + 3 dual sums = 52), d²/den (20); 3 weights and 9
-#                              products summed into JᵀWJ and JᵀWs (21)
-POLISH_COST_FLOPS = 42       # the same in values (39) and w·s² summed (3)
-POLISH_RESCORE_FLOPS = 40    # the Sampson error (39) and the capped sum (1)
-
-
-def polish_flops(iterations, N: int) -> float:
-    """Operations of one polish call: for each pair, its first cost, then
-    per LM iteration a Jacobian evaluation and a cost, then the rescoring,
-    each over its N matches. `iterations` holds each pair's count."""
-    it = float(iterations.sum())
-    pairs = iterations.numel()
-    return N * (POLISH_COST_FLOPS * (pairs + it) + POLISH_JACOBIAN_FLOPS * it
-                + POLISH_RESCORE_FLOPS * pairs)
-
-
-def polish_inputs(B, N, dtype=torch.float64, inward=False, seed=0, device="cuda",
-                  rotation_deg=-1.0, outliers=(0.3, 0.7)):
-    """The final polish's inputs at B pairs × N matches: rays of random
-    spherical problems (1 px noise at f = 600; rotations uniform in [0, π)
-    by default) with a share of outliers drawn per pair from `outliers`,
-    through the adaptive engine on `device` without its polish. Returns
-    (r0, u, v, mask, inliers, E, score, sq_thresh)."""
-    from sphericalsfm_tpu_torch.eval.synthetic import make_random_problems
-    from sphericalsfm_tpu_torch.geometry.essential import decompose_spherical_essential
-    from sphericalsfm_tpu_torch.ransac.spherical import spherical_ransac_adaptive
-
-    prob = make_random_problems(torch.Generator().manual_seed(seed), B, N, inward=inward,
-                                rotation_deg=rotation_deg, point_noise=1.0 / 600, device="cpu")
-    rng = np.random.default_rng(seed)
-    out = rng.uniform(size=(B, N)) < rng.uniform(*outliers, size=(B, 1))
-    v = prob.v.numpy().copy()
-    v[..., :2] = np.where(out[..., None], rng.normal(size=(B, N, 2)) * 0.5, v[..., :2])
-    u, v = (torch.as_tensor(x, dtype=dtype, device=device) for x in (prob.u.numpy(), v))
-    mask = prob.valid.to(device)
-    sq = (2.0 / 600) ** 2
-    res = spherical_ransac_adaptive(torch.Generator(device=device).manual_seed(seed + 1), u, v,
-                                    mask, sq, max_rounds=79, inward=inward,
-                                    final_least_squares=False)
-    r0, _ = decompose_spherical_essential(res.E, inward=inward)
-    return r0.contiguous(), u, v, mask, res.inlier_mask, res.E, res.score, sq
-
-
-def polish_agreement(args, k, p, inward=False, min_equal=0.99):
-    """The kernel's polish `k` against the plain path's `p` on the float64
-    inputs `args` (polish_inputs' tuple): the measures and the failures
-    among them. Both paths run the same arithmetic summed in another order:
-    LM iterations equal on ≥ `min_equal` of pairs (an accept test flips
-    only at rounding level, near a minimum), rotations with equal iterations
-    within 1e-9 relative; the accepted flags equal outside ties (the
-    polished score within 1e-9 relative of the RANSAC score, or within
-    1e-12 of one capped match: a pair whose few valid matches fit exactly
-    scores ~1e-32, rounding alone); the inlier rows of pairs with equal
-    flags equal outside matches within 1e-9 relative of the threshold; the
-    scores (1e-9 relative) and models (1e-9) of pairs both kept with equal
-    iterations; and the input model and score left as they were where the
-    kernel did not accept."""
-    from sphericalsfm_tpu_torch.geometry.essential import make_spherical_essential
-    from sphericalsfm_tpu_torch.geometry.so3 import so3_exp
-    from sphericalsfm_tpu_torch.ransac.engine import msac_score
-    from sphericalsfm_tpu_torch.ransac.spherical import sampson_error
-
-    r0, u, v, mask, inliers, E, score, sq = args
-    same = k.iterations == p.iterations
-    rel = (torch.linalg.norm(k.r - p.r, dim=-1)
-           / torch.linalg.norm(p.r, dim=-1).clamp(min=1e-300))
-    errs = sampson_error(make_spherical_essential(so3_exp(p.r), inward=inward), u, v)
-    tie = (msac_score(errs, sq, mask) - score).abs() <= 1e-9 * score.abs() + 1e-12 * sq
-    rows = k.accepted == p.accepted
-    near = (errs - sq).abs() <= 1e-9 * sq
-    kept = k.accepted & p.accepted & same
-    score_ok = (k.score - p.score).abs() <= 1e-9 * p.score.abs() + 1e-12 * sq
-    E_err = (k.E - p.E).abs().flatten(1).amax(-1)
-    left = ~k.accepted
-    info = dict(iters_equal_share=float(same.double().mean()),
-                r_rel_max_equal_iters=float(rel[same].max()) if same.any() else None,
-                r_rel_max=float(rel.max()),
-                accepted_share=float(k.accepted.double().mean()),
-                accepted_ties=int(tie.sum()),
-                accepted_differ=int((k.accepted != p.accepted)[~tie].sum()),
-                inliers_differ=int(((k.inliers != p.inliers) & ~near)[rows].sum()),
-                kept_both=int(kept.sum()),
-                kept_score_differ=int((~score_ok)[kept].sum()),
-                kept_E_max_abs_err=float(E_err[kept].max()) if kept.any() else 0.0,
-                unaccepted_changed=int(((k.E != E).flatten(1).any(-1)
-                                        | (k.score != score))[left].sum()))
-    failures = []
-    if info["iters_equal_share"] < min_equal:
-        failures.append(f"LM iterations equal on {info['iters_equal_share']:.3f} of pairs")
-    if info["r_rel_max_equal_iters"] is None or not info["r_rel_max_equal_iters"] <= 1e-9:
-        failures.append(f"rotations differ by {info['r_rel_max_equal_iters']} relative")
-    if info["accepted_differ"]:
-        failures.append(f"accepted flags differ outside ties on {info['accepted_differ']} pairs")
-    if info["inliers_differ"]:
-        failures.append(f"{info['inliers_differ']} inlier flags differ off the threshold")
-    if info["kept_score_differ"]:
-        failures.append(f"scores of {info['kept_score_differ']} kept pairs differ")
-    if not info["kept_E_max_abs_err"] <= 1e-9:
-        failures.append(f"kept models differ by {info['kept_E_max_abs_err']}")
-    if info["unaccepted_changed"]:
-        failures.append(f"{info['unaccepted_changed']} pairs not accepted changed model or score")
-    return info, failures
-
-
 def run_polish_phase(device="cuda", B=128, N=1024):
     """The final-polish kernel against the plain path on the card at the
-    main path's chunk: agreement (`polish_agreement`), times and the FP64
-    bound. Returns the phase's line."""
+    main path's chunk: agreement (`kernel_checks.polish_agreement`), times
+    and the FP64 bound. Returns the phase's line."""
     from sphericalsfm_tpu_torch.ransac import spherical as sph
-    from sphericalsfm_tpu_torch.ransac.polish_kernel import spherical_polish
 
-    args = polish_inputs(B, N, device=device)
-    before = spherical_polish.launches
+    args = kc.polish_inputs(B, N, device=device)
+    before = launch_counts()
     k = sph._polish(*args, False, 25)
     p = sph._polish_plain(*args, False, 25)
-    sync(device)
-    launches = spherical_polish.launches - before
-    agreement, failures = polish_agreement(args, k, p)
-    info = dict(pairs=B, matches=N, dtype="float64", launches=launches,
-                iters_mean=float(k.iterations.double().mean()),
+    kc.sync(device)
+    counts = launches_since(before)
+    agreement, failures = kc.polish_agreement(args, k, p)
+    info = dict(pairs=B, matches=N, shape=f"{B}x{N} float64", launches=counts["polish"],
+                counts=counts, iters_mean=float(k.iterations.double().mean()),
                 plain_iters_mean=float(p.iterations.double().mean()), **agreement)
-    info["ms"] = cuda_ms(lambda: spherical_polish(*args, False, 25))
-    info["plain_ms"] = cuda_ms(lambda: sph._polish_plain(*args, False, 25), reps=3, warmup=1)
-    flops = polish_flops(k.iterations, N)
-    info.update(flops=flops, bound_ms=flops / H100_FP64_FLOPS * 1e3, bound_by="operations")
+    info["ms"] = kc.device_ms(lambda: spherical_polish(*args, False, 25), device)
+    info["plain_ms"] = kc.device_ms(lambda: sph._polish_plain(*args, False, 25), device, reps=3,
+                                    warmup=1)
+    flops = kc.polish_flops(k.iterations, N)
+    info.update(flops=flops, bound_ms=flops / kc.H100_FP64_FLOPS * 1e3, bound_by="operations")
     info["share_of_bound"] = info["bound_ms"] / info["ms"]
     phase("polish", **info, failures=failures)
-    if launches != 1:
-        failures.append(f"{launches} launches for one call")
+    if counts["polish"] != 1:
+        failures.append(f"{counts['polish']} launches for one call")
     if failures:
         raise RuntimeError("polish phase: " + "; ".join(failures))
     return info
 
 
-def _chunk_parts(pairs: int, chunk: int, devices: int = 0) -> list:
-    """The parts of each chunk of a pairwise sweep: a chunk grown with the
-    mesh and split over its shards as `estimate_pairwise` grows and splits
-    it."""
-    nd = max(devices, 1)
-    if devices:
-        chunk = -(-chunk // nd) * nd * max(1, nd // 8)
-    return [min(nd, pairs - s) for s in range(0, pairs, chunk)]
-
-
-def polish_parts(pairs: int, chunk: int, devices: int = 0) -> int:
-    """Polish launches of one pairwise RANSAC sweep: one a part of each
-    chunk."""
-    return sum(_chunk_parts(pairs, chunk, devices))
-
-
-def ransac_launches(polish: int, rounds: int, record: dict, pairs: int, chunk: int,
-                    devices: int = 0, kernels: bool = True):
-    """The RANSAC kernels' launches of one pairwise sweep against what it
-    must launch, from the counters' `polish` and `rounds` and the sweep's
-    `estimate_pairwise` stage `record`: the polish one a part of each chunk;
-    the round kernel rounds × parts with the adaptive engine (the record's
-    `rounds`, and its `round_launches` the same count), one a part of each
-    chunk with the static one; none of either where `kernels` is False (the
-    five-point engine). Returns (the counts and expectations, failures)."""
-    parts = _chunk_parts(pairs, chunk, devices)
-    adaptive = "rounds" in record
-    if not kernels:
-        want_polish = want_rounds = 0
-    elif adaptive:     # a chunk runs its rounds on each of its parts
-        want_polish = sum(parts)
-        want_rounds = record["rounds"] * parts[0] if len(set(parts)) == 1 else None
-    else:
-        want_polish = want_rounds = sum(parts)
-    info = dict(polish_launches=polish, expected_polish_launches=want_polish,
-                round_launches=rounds, expected_round_launches=want_rounds,
-                recorded_round_launches=record.get("round_launches"))
-    failures = []
-    if polish != want_polish:
-        failures.append(f"polish launched {polish} times, expected {want_polish}")
-    if rounds != want_rounds or (adaptive and record.get("round_launches") != rounds):
-        failures.append(f"round kernel launched {rounds} times (recorded "
-                        f"{record.get('round_launches')}), expected {want_rounds}")
-    return info, failures
-
-
-# Floating-point operations of the RANSAC round (csrc/spherical_round.cu),
-# counted from its arithmetic: a product or sum is 1, a math-library call
-# (sqrt, hypot, atan2, pow, cos, sin) 1.
-ROUND_SOLVE_FLOPS = 6140  # a triple: the epipolar rows (30); Gram-Schmidt of them (129),
-#                           the six residuals (432) and their norms (78), Gram-Schmidt of
-#                           the three kept (129); at each of 10 nodes its parameters (30),
-#                           E Eᵀ (45), its trace (2), 2 E Eᵀ E − tr E (72), det E (14) and
-#                           the node's share of C (200); C1ᵀC1's lower half (420), C1ᵀC2
-#                           (480), the Cholesky (91), forward (144) and the two last rows
-#                           back (16); the quartic's coefficients (3) and roots (174);
-#                           2 Newton steps on 4 roots (152); x (36), p, its norm and the
-#                           division (196)
-ROUND_SCORE_FLOPS = 38    # a candidate and a valid match: E u (13), Eᵀv's first two (10),
-#                           vᵀEu (5), the denominator (7), d² (1), thr·den (1), the sum (1);
-#                           the division, made only under the threshold, is not counted
-ROUND_INLIER_FLOPS = 37   # a match of a pair that keeps its round's best: the error (36)
-#                           and its division
-
-
-def round_flops(valid_rows, R: int, N: int, kept: int = 0) -> float:
-    """Operations of one round call: for each active pair, whose valid
-    matches `valid_rows` counts, R solves and 4R candidates scored over its
-    valid matches; then N errors for each of the `kept` pairs whose round
-    best replaced its running best."""
-    rows = float(valid_rows.sum()) if torch.is_tensor(valid_rows) else float(sum(valid_rows))
-    active = valid_rows.numel() if torch.is_tensor(valid_rows) else len(valid_rows)
-    return (active * R * ROUND_SOLVE_FLOPS + 4 * R * rows * ROUND_SCORE_FLOPS
-            + kept * N * ROUND_INLIER_FLOPS)
-
-
-def round_inputs(B, R, N, dtype=torch.float64, seed=0, device="cuda", active_share=0.6,
-                 outliers=(0.3, 0.7), rotation_deg=-1.0):
-    """One round's inputs at B pairs × R triples × N matches: rays of random
-    spherical problems (1 px noise at f = 600; rotations uniform in [0, π)
-    by default) with a share of outliers drawn per pair from `outliers`,
-    each pair's valid matches a prefix of N/2 to N rows (the rest filled
-    with junk rays); the running best after one plain round of other
-    triples from no model, the round's triples from `sample_tuples` and an
-    active flag drawn per pair at `active_share`. Returns (triples, u, v,
-    mask, E, score, inliers, active, sq_thresh)."""
-    from sphericalsfm_tpu_torch.eval.synthetic import make_random_problems
-    from sphericalsfm_tpu_torch.ransac import spherical as sph
-    from sphericalsfm_tpu_torch.ransac.engine import sample_tuples
-
-    prob = make_random_problems(torch.Generator().manual_seed(seed), B, N,
-                                rotation_deg=rotation_deg, point_noise=1.0 / 600, device="cpu")
-    rng = np.random.default_rng(seed)
-    out = rng.uniform(size=(B, N)) < rng.uniform(*outliers, size=(B, 1))
-    u, v = prob.u.numpy().copy(), prob.v.numpy().copy()
-    v[..., :2] = np.where(out[..., None], rng.normal(size=(B, N, 2)) * 0.5, v[..., :2])
-    mask = prob.valid.numpy() & (np.arange(N) < rng.integers(N // 2, N + 1, size=(B, 1)))
-    u[~mask] = rng.normal(size=(int((~mask).sum()), 3)) * 1e3
-    u, v = (torch.as_tensor(x, dtype=dtype, device=device) for x in (u, v))
-    mask = torch.as_tensor(mask, device=device)
-    sq = (2.0 / 600) ** 2
-    gen = torch.Generator().manual_seed(seed + 1)
-    first = sample_tuples(gen, mask.cpu(), R, 3).to(device)
-    start = sph._round_plain(sph._start(u, v, mask), first,
-                             torch.ones(B, dtype=torch.bool, device=device), sq)
-    triples = sample_tuples(gen, mask.cpu(), R, 3).to(device)
-    active = torch.as_tensor(rng.uniform(size=B) < active_share, device=device)
-    return triples, u, v, mask, start.E, start.score, start.inliers, active, sq
-
-
-def round_plain_candidates(args):
-    """The plain round's candidates on the inputs' device: E (B, 4R, 3, 3),
-    valid and MSAC scores (B, 4R), as `engine.best_model` scores them."""
-    from sphericalsfm_tpu_torch.ransac import spherical as sph
-    from sphericalsfm_tpu_torch.solvers.spherical import solve_spherical_3pt
-
-    triples, u, v = args[:3]
-    B = u.shape[0]
-    Es, valid = solve_spherical_3pt(sph._gather_rows(u, triples), sph._gather_rows(v, triples))
-    Es, valid = Es.reshape(B, -1, 3, 3), valid.reshape(B, -1)
-    return Es, valid, candidate_scores(args, Es, valid)
-
-
-def candidate_scores(args, Es, valid):
-    """The MSAC scores (B, S) of candidates Es (B, S, 3, 3) over the
-    inputs' matches, as `engine.best_model` scores them: +inf where not
-    `valid`."""
-    from sphericalsfm_tpu_torch.ransac import spherical as sph
-    from sphericalsfm_tpu_torch.ransac.engine import msac_score
-
-    u, v, mask, sq = args[1], args[2], args[3], args[8]
-    errs = sph.sampson_error(Es, u[:, None], v[:, None])
-    errs = torch.where(torch.isfinite(errs), errs, torch.full_like(errs, float("inf")))
-    return torch.where(valid, msac_score(errs, sq, mask[:, None, :]),
-                       torch.full_like(valid, float("inf"), dtype=u.dtype))
-
-
-def round_witness(args):
-    """The plain solve's candidates (E, valid) for the inputs' triples
-    computed on the CPU and moved to the inputs' device: the reference run
-    again with other reductions and math libraries, so what it moves
-    against the plain solve on the card is what rounding alone moves."""
-    from sphericalsfm_tpu_torch.ransac import spherical as sph
-    from sphericalsfm_tpu_torch.solvers.spherical import solve_spherical_3pt
-
-    triples, u, v = (x.cpu() for x in args[:3])
-    B = u.shape[0]
-    Es, valid = solve_spherical_3pt(sph._gather_rows(u, triples), sph._gather_rows(v, triples))
-    dev = args[1].device
-    return Es.reshape(B, -1, 3, 3).to(dev), valid.reshape(B, -1).to(dev)
-
-
-def candidate_residuals(args, Es):
-    """Each candidate's residuals (B, 4R) on its own triple, both zero for
-    a true solution however ill conditioned the solve that found it: the
-    largest |vᵀEu| of the triple's three correspondences (unit rays, E
-    scaled to ‖E‖ = 1), and the largest entry of the essential-matrix
-    constraint 2EEᵀE − tr(EEᵀ)E of E scaled so."""
-    from sphericalsfm_tpu_torch.ransac import spherical as sph
-
-    triples, u, v = args[:3]
-    B, R = triples.shape[:2]
-    uu, vv = sph._gather_rows(u, triples), sph._gather_rows(v, triples)
-    uu = uu / uu.norm(dim=-1, keepdim=True)
-    vv = vv / vv.norm(dim=-1, keepdim=True)
-    E = Es.reshape(B, R, 4, 3, 3)
-    E = E / E.flatten(-2).norm(dim=-1).clamp_min(torch.finfo(E.dtype).tiny)[..., None, None]
-    epipolar = torch.einsum("brki,brcij,brkj->brck", vv, E, uu).abs().amax(-1)
-    EEt = E @ E.transpose(-1, -2)
-    trace = EEt.diagonal(dim1=-2, dim2=-1).sum(-1)
-    essential = (2 * EEt @ E - trace[..., None, None] * E).abs().flatten(-2).amax(-1)
-    return epipolar.reshape(B, 4 * R), essential.reshape(B, 4 * R)
-
-
-def round_sensitivity(args, draws=2, seed=0):
-    """How far the plain solve's own candidates move when its rays move by
-    one rounding: for each candidate (B, 4R), the largest distance over
-    `draws` draws (every coordinate of u and v times 1 + kε, k in
-    {-1, 0, 1}) to the nearest candidate of its triple. The solve hangs on
-    rounding where C1ᵀC1 is ill conditioned, near double roots, and in the
-    spurious candidates from a complex pair's real part."""
-    from sphericalsfm_tpu_torch.ransac import spherical as sph
-    from sphericalsfm_tpu_torch.solvers.spherical import solve_spherical_3pt
-
-    triples, u, v = args[:3]
-    B = u.shape[0]
-
-    def solve(uu, vv):
-        Es, _ = solve_spherical_3pt(sph._gather_rows(uu, triples), sph._gather_rows(vv, triples))
-        return Es.reshape(B, -1, 3, 3)
-
-    Ep = solve(u, v)
-    gen = torch.Generator(device=u.device).manual_seed(seed)
-    eps = torch.finfo(u.dtype).eps
-
-    def moved(x):
-        k = torch.randint(-1, 2, x.shape, generator=gen, device=x.device).to(x.dtype)
-        return x * (1 + eps * k)
-
-    out = torch.zeros(Ep.shape[:2], dtype=Ep.dtype, device=Ep.device)
-    for _ in range(draws):
-        out = torch.maximum(out, _nearest_gap(Ep, solve(moved(u), moved(v))))
-    return out
-
-
-def _nearest(Ea, Eb):
-    """For each candidate of Ea (B, 4R, 3, 3), the distance (largest entry)
-    to the nearest candidate of the same triple in Eb, and that candidate's
-    index (B, 4R). Rounding may hand a triple's roots to its four slots in
-    another order (the sign of a rounding-size imaginary part picks the
-    branch of a complex square root), so a triple's candidates are matched
-    as a set."""
-    B, S = Ea.shape[:2]
-    d = (Ea.reshape(B, S // 4, 4, 1, 9) - Eb.reshape(B, S // 4, 1, 4, 9)).abs().amax(-1)
-    gap, j = d.min(-1)
-    first = torch.arange(0, S, 4, device=Ea.device)[None, :, None]
-    return gap.reshape(B, S), (first + j).reshape(B, S)
-
-
-def _nearest_gap(Ea, Eb):
-    return _nearest(Ea, Eb)[0]
-
-
-def _root_flips(Ea, va, ra, Eb, rb, root):
-    """The candidates of Ea (where `va`) that solve their triple, their
-    essential residual `ra` at most `root`, whose nearest candidate of the
-    same triple in Eb does not: its residual `rb` more than 10× theirs, or
-    than `root`."""
-    rb_near = rb.gather(1, _nearest(Ea, Eb)[1])
-    return va & (ra <= root) & (rb_near > 10 * torch.clamp(ra, min=root))
-
-
-# A candidate's |vᵀEu| on its own triple, in ε: at most 5.1e-13 (2,300 ε) for
-# the kernel's 262,144 candidates of four 128 × 128 chunks on an H100, and
-# 1.1e-12 for the plain solve's there.
-ROUND_EPIPOLAR_EPS = 2 ** 14
-# An essential residual of at most this many ε (1.2e-10 in float64) makes a
-# candidate a solution of its triple; the spurious ones, from a complex pair's
-# real part, read 1e-3 to 1.
-ROUND_ROOT_EPS = 2 ** 19
-
-
-def round_agreement(args, k, kc, p, pc, sens, rel=1e-9, tie=1e-9):
-    """The kernel's round `k` (RoundResult) and candidates `kc` against the
-    plain round's `p` (its _Part) and candidates `pc` (round_plain_candidates)
-    on the float64 inputs `args` (round_inputs' tuple), for the active
-    pairs. Candidates: each triple with as many valid; each plain candidate
-    matched to the nearest kernel candidate of its triple (rounding may
-    hand the roots to the slots in another order), at the 50th, 90th, 99th
-    and 99.9th percentiles (those with ten candidates or more above them)
-    no farther than 10× the plain solve's own move under a one-rounding
-    change of its rays (`sens`, round_sensitivity) or 1e-12: the plain
-    solve itself moves by up to ~1 on ill-conditioned triples, so no second
-    implementation matches every candidate. Candidate by candidate, with
-    the plain solve on the CPU as a witness (round_witness): every valid
-    candidate within ROUND_EPIPOLAR_EPS of its own triple's three epipolar
-    constraints (candidate_residuals); the plain solutions whose nearest
-    kernel candidate is no solution (ROUND_ROOT_EPS), and the kernel's
-    solutions whose nearest plain candidate is none, each at most 3× the
-    witness's count and 5; the candidates farther from the plain solve
-    than 10× their own `sens`, at most 4× the witness's count and 10. Every
-    candidate's MSAC score within `rel` relative (or 1e-12 of one capped
-    match) of the plain scoring of the kernel's own E (the score moves with
-    E at up to 1/|vᵀEu| of the inliers). The round: the same best (its E
-    within `rel`) except where the plain round's two lowest scores lie within
-    `tie` relative (or 1e-12 of one capped match); the same keep except
-    there or where the best scores that close to the running one; for
-    pairs both kept with the same best, E within `rel`, the score held as a
-    candidate's and the inlier rows of the kept E (off the threshold, a
-    match within `rel` relative of it); the kernel's kept model its own
-    pick's candidate exactly; and every pair that did not keep (every
-    inactive one) left as it was, bit for bit. Returns (the
-    measures, failures)."""
-    from sphericalsfm_tpu_torch.ransac import spherical as sph
-    from sphericalsfm_tpu_torch.ransac.engine import msac_score
-
-    triples, u, v, mask, E, score, inliers, active, sq = args
-    Ep, vp, sp = pc
-    act = active
-    B = u.shape[0]
-
-    def scored(Es):                     # the plain scoring of candidates (B, S, 3, 3)
-        errs = sph.sampson_error(Es, u[:, None], v[:, None])
-        errs = torch.where(torch.isfinite(errs), errs, torch.full_like(errs, float("inf")))
-        return msac_score(errs, sq, mask[:, None, :]), errs
-
-    def close(a, b):
-        return (a - b).abs() <= rel * b.abs() + 1e-12 * sq
-
-    def pick(Es, i):
-        return Es.gather(1, i[:, None, None, None].expand(-1, 1, 3, 3))[:, 0]
-
-    cand = act[:, None] & vp
-    E_gap = _nearest_gap(Ep, kc.E)[cand]
-    Ew, vw = round_witness(args)
-    eps = torch.finfo(u.dtype).eps
-    root = ROUND_ROOT_EPS * eps
-    ep_k, rE_k = candidate_residuals(args, kc.E)
-    ep_p, rE_p = candidate_residuals(args, Ep)
-    rE_w = candidate_residuals(args, Ew)[1]
-    k_cand, w_cand = act[:, None] & kc.valid, act[:, None] & vw
-
-    def far(Es):                        # candidates farther than 10× their own sens
-        return int((cand & (_nearest_gap(Ep, Es) > torch.clamp(10 * sens, min=1e-12))).sum())
-    # the percentiles with ten candidates or more above them
-    qs = torch.tensor([q for q in (0.5, 0.9, 0.99, 0.999) if (1 - q) * E_gap.numel() >= 10],
-                      dtype=E_gap.dtype, device=E_gap.device)
-    gap_q, sens_q = torch.quantile(E_gap, qs), torch.quantile(sens[cand], qs)
-    both = act[:, None] & kc.valid & vp
-    own_sc = scored(kc.E)[0]
-    ik, ip = torch.argmin(kc.score, -1), torch.argmin(sp, -1)
-    low = torch.topk(sp, 2, dim=-1, largest=False).values
-    pick_tie = (low[:, 1] - low[:, 0]).abs() <= tie * low[:, 0].abs() + 1e-12 * sq
-    pick_gap = (pick(kc.E, ik) - pick(Ep, ip)).abs().flatten(1).amax(-1)
-    best_p = low[:, 0]
-    kept_p = act & (best_p < score)
-    kept_k = act & (k.score < score)
-    keep_tie = ((best_p - score).abs() <= tie * score.abs() + 1e-12 * sq) | pick_tie
-    same = kept_k & kept_p & (pick_gap <= rel)
-    k_sc, k_errs = scored(k.E[:, None])
-    near = ((k_errs[:, 0] - sq).abs() <= rel * sq) | ~torch.isfinite(k_errs[:, 0])
-    k_inl = (k_errs[:, 0] < sq) & mask
-    left = ~kept_k
-    changed = ((k.E != E).flatten(1).any(-1) | (k.score != score)
-               | (k.inliers != inliers).any(-1))
-
-    def worst(x, sel):
-        return float(x[sel].max()) if sel.any() else 0.0
-
-    info = dict(active=int(act.sum()), candidates=int(act.sum()) * kc.valid.shape[1],
-                valid_share=float(vp[act].double().mean()) if act.any() else None,
-                valid_differ=int(((kc.valid.reshape(B, -1, 4).sum(-1)
-                                   != vp.reshape(B, -1, 4).sum(-1)) & act[:, None]).sum()),
-                E_gap_quantiles=gap_q.tolist(), plain_move_quantiles=sens_q.tolist(),
-                E_gap_max=float(E_gap.max()) if E_gap.numel() else 0.0,
-                E_gap_over_rel_share=float((E_gap > rel).double().mean())
-                if E_gap.numel() else 0.0,
-                over_10x_sens=far(kc.E), witness_over_10x_sens=far(Ew),
-                epipolar_max=worst(ep_k, k_cand), plain_epipolar_max=worst(ep_p, cand),
-                roots_lost=int(_root_flips(Ep, cand, rE_p, kc.E, rE_k, root).sum()),
-                witness_roots_lost=int(_root_flips(Ep, cand, rE_p, Ew, rE_w, root).sum()),
-                roots_gained=int(_root_flips(kc.E, k_cand, rE_k, Ep, rE_p, root).sum()),
-                witness_roots_gained=int(_root_flips(Ew, w_cand, rE_w, Ep, rE_p, root).sum()),
-                score_differ=int((~close(kc.score, own_sc) & both).sum()),
-                picks_differ=int(((pick_gap > rel) & act & ~pick_tie).sum()),
-                pick_ties=int((pick_tie & act).sum()),
-                keeps_differ=int(((kept_k != kept_p) & ~keep_tie).sum()),
-                kept=int(kept_k.sum()), kept_both_same_pick=int(same.sum()),
-                kept_E_max_gap=worst((k.E - p.E).abs().flatten(1).amax(-1), same),
-                kept_score_differ=int((~close(k.score, k_sc[:, 0]) & kept_k).sum()),
-                inliers_differ=int(((k.inliers != k_inl) & ~near)[kept_k].sum()),
-                kept_not_own_pick=int((((k.E != pick(kc.E, ik)).flatten(1).any(-1)
-                                        | (k.score != kc.score.gather(1, ik[:, None])[:, 0]))
-                                       & kept_k).sum()),
-                unkept_changed=int((changed & left).sum()))
-    failures = []
-    if info["valid_differ"]:
-        failures.append(f"valid candidates differ in number on {info['valid_differ']} triples")
-    if not bool((gap_q <= torch.clamp(10 * sens_q, min=1e-12)).all()):
-        failures.append(f"candidates differ by {gap_q.tolist()} at the percentiles where the "
-                        f"plain solve moves {sens_q.tolist()}")
-    if not info["epipolar_max"] <= ROUND_EPIPOLAR_EPS * eps:
-        failures.append(f"a candidate misses its triple's epipolar constraints by "
-                        f"{info['epipolar_max']}")
-    for flip in ("lost", "gained"):
-        n, w = info[f"roots_{flip}"], info[f"witness_roots_{flip}"]
-        if n > 3 * w + 5:
-            failures.append(f"{n} solutions of their triple {flip} against the plain "
-                            f"solve, {w} by the witness")
-    if info["over_10x_sens"] > 4 * info["witness_over_10x_sens"] + 10:
-        failures.append(f"{info['over_10x_sens']} candidates beyond 10× the plain solve's own "
-                        f"move, {info['witness_over_10x_sens']} of the witness's")
-    if info["score_differ"]:
-        failures.append(f"{info['score_differ']} candidate scores differ from their E's")
-    if info["picks_differ"]:
-        failures.append(f"the best candidate differs outside ties on {info['picks_differ']} pairs")
-    if info["keeps_differ"]:
-        failures.append(f"the keep differs outside ties on {info['keeps_differ']} pairs")
-    if not info["kept_E_max_gap"] <= rel or info["kept_score_differ"]:
-        failures.append(f"kept models differ by {info['kept_E_max_gap']}, "
-                        f"{info['kept_score_differ']} kept scores from their E's")
-    if info["inliers_differ"]:
-        failures.append(f"{info['inliers_differ']} inlier flags differ off the threshold")
-    if info["kept_not_own_pick"]:
-        failures.append(f"{info['kept_not_own_pick']} kept models are not the kernel's pick")
-    if info["unkept_changed"]:
-        failures.append(f"{info['unkept_changed']} pairs that did not keep changed")
-    return info, failures
-
-
 def run_round_phase(device="cuda", B=128, R=128, N=1024):
     """The round kernel against the plain round on the card at the main
-    path's chunk (`round_agreement`, 60% of the pairs active), a repeat bit
-    for bit, and the times of both with every pair active beside the
-    kernel's FP64 bound. Returns the phase's line."""
+    path's chunk (`kernel_checks.round_agreement`, 60% of the pairs
+    active), a repeat bit for bit, and the times of both with every pair
+    active beside the kernel's FP64 bound. Returns the phase's line."""
     from sphericalsfm_tpu_torch.ransac import spherical as sph
-    from sphericalsfm_tpu_torch.ransac.round_kernel import spherical_round
 
-    args = round_inputs(B, R, N, device=device)
+    args = kc.round_inputs(B, R, N, device=device)
     triples, u, v, mask, E, score, inliers, active, sq = args
     part = sph._Part(u, v, mask, E, score, inliers)
-    before = spherical_round.launches
-    k, kc = spherical_round(*args, candidates=True)
+    before = launch_counts()
+    k, cand = spherical_round(*args, candidates=True)
     via = sph._round(part, triples, active, sq)
     p = sph._round_plain(part, triples, active, sq)
-    pc = round_plain_candidates(args)
-    sync(device)
-    launches = spherical_round.launches - before
-    agreement, failures = round_agreement(args, k, kc, p, pc, round_sensitivity(args))
+    pc = kc.round_plain_candidates(args)
+    kc.sync(device)
+    counts = launches_since(before)
+    agreement, failures = kc.round_agreement(args, k, cand, p, pc, kc.round_sensitivity(args))
     again = spherical_round(*args)
     repeat = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
                  for a, b in zip(k, again)) and all(
         torch.equal(a, b) for a, b in zip(k, (via.E, via.score, via.inliers)))
     every = torch.ones_like(active)
     full = (*args[:7], every, sq)
-    info = dict(pairs=B, triples=R, matches=N, dtype="float64", launches=launches,
-                repeat_bit_equal=repeat, valid_rows_mean=float(mask.sum(-1).double().mean()),
-                **agreement)
-    info["ms"] = cuda_ms(lambda: spherical_round(*full))
-    info["ms_active_share_0.6"] = cuda_ms(lambda: spherical_round(*args))
-    info["plain_ms"] = cuda_ms(lambda: sph._round_plain(part, triples, every, sq), reps=3,
-                               warmup=1)
+    info = dict(pairs=B, triples=R, matches=N, shape=f"{B}x{R}x{N} float64",
+                launches=counts["round"], counts=counts, repeat_bit_equal=repeat,
+                valid_rows_mean=float(mask.sum(-1).double().mean()), **agreement)
+    info["ms"] = kc.device_ms(lambda: spherical_round(*full), device)
+    info["ms_active_share_0.6"] = kc.device_ms(lambda: spherical_round(*args), device)
+    info["plain_ms"] = kc.device_ms(lambda: sph._round_plain(part, triples, every, sq), device,
+                                    reps=3, warmup=1)
     kept = int((spherical_round(*full).score < score).sum())
-    flops = round_flops(mask.sum(-1), R, N, kept)
-    info.update(flops=flops, bound_ms=flops / H100_FP64_FLOPS * 1e3, bound_by="operations")
+    flops = kc.round_flops(mask.sum(-1), R, N, kept)
+    info.update(flops=flops, bound_ms=flops / kc.H100_FP64_FLOPS * 1e3, bound_by="operations")
     info["share_of_bound"] = info["bound_ms"] / info["ms"]
-    if launches != 2:
-        failures.append(f"{launches} launches for two calls")
+    if counts["round"] != 2:
+        failures.append(f"{counts['round']} launches for two calls")
     if not repeat:
         failures.append("the round does not repeat bit for bit")
     phase("round", **info, failures=failures)
     if failures:
         raise RuntimeError("round phase: " + "; ".join(failures))
     return info
+
 
 
 class DriverProbe:
@@ -1000,12 +342,12 @@ class DriverProbe:
         self.real = (d.estimate_pairwise, d.optimize_rotations)
 
         def pairwise(*a, **kw):
-            sync(self.device)
+            kc.sync(self.device)
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             t0 = time.perf_counter()
             out = self.real[0](*a, **kw)
-            sync(self.device)
+            kc.sync(self.device)
             self.info.update(pairwise_s=time.perf_counter() - t0,
                              pairwise_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                              pairwise_peak_above_start_gib=(torch.cuda.max_memory_allocated()
@@ -1038,8 +380,10 @@ def main_config(static: bool = False):
     return cfg
 
 
-def run_main_path(two_nn, device="cuda", F=48, W=640, H=480, static=False, phase_name=None,
-                  devices=0):
+def run_main_path(device="cuda", F=48, W=640, H=480, static=False, phase_name=None, devices=0):
+    """The calibrated driver on a rendered capture at the main phase's
+    gates. Returns the run's launch counts and what later phases take from
+    it."""
     from sphericalsfm_tpu_torch.eval.metrics import ate, rotation_error_deg
     from sphericalsfm_tpu_torch.eval.render import render_capture
     from sphericalsfm_tpu_torch.geometry.pose import Intrinsics
@@ -1058,15 +402,14 @@ def run_main_path(two_nn, device="cuda", F=48, W=640, H=480, static=False, phase
     # one launch per chunk, or per shard and chunk on a mesh
     chunks = sum(min(max(devices, 1), pairs - s) for s in range(0, pairs, CHUNK))
     with tempfile.TemporaryDirectory() as out, DriverProbe(device) as probe:
-        reset_counts(two_nn)
+        before = launch_counts()
         t0 = time.perf_counter()
         m = run_calibrated(None, Intrinsics(focal, W / 2.0, H / 2.0), out, cfg,
                            gray=gray, color=color, device=device)
         if device == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, routes = two_nn.launches, dict(two_nn.route_launches)
-        polish, rounds = polish_launches(), round_launches()
+        n = launches_since(before)
         with open(os.path.join(out, "poses.txt")) as f:
             poses_txt = f.read()
         missing = [f for f in ("poses.txt", "points.obj", "cameras.obj", "summary.json",
@@ -1087,16 +430,15 @@ def run_main_path(two_nn, device="cuda", F=48, W=640, H=480, static=False, phase
           or k.endswith("_initial_cost") or k.endswith("_iterations")}
     pw = {k: v for k, v in probe.items() if k.startswith("pairwise")}
     counts = [s for s in stages if s["stage"] == "estimate_pairwise"][-1]
-    kernels, kernel_failures = ransac_launches(polish, rounds, counts, pairs,
-                                               cfg.ransac.pair_chunk, devices)
+    kernels, kernel_failures = kc.ransac_launches(n["polish"], n["round"], counts, pairs,
+                                                  cfg.ransac.pair_chunk, devices)
     name = phase_name or ("static_ransac" if static else "main")
-    ROUND_LAUNCHES[name] = rounds
     info = dict(frames=F, size=f"{W}x{H}", pairs=pairs,
                 engine="static" if static else "adaptive",
                 num_hypotheses=cfg.ransac.num_hypotheses, wall_s=round(wall, 3),
                 render_s=round(render_s, 3), ate=err, median_rel_rot_deg=float(np.median(rel)),
-                points=int(m.point_valid().sum()), summary=summary, launches=launches,
-                route_launches=routes, expected_launches=chunks, **kernels,
+                points=int(m.point_valid().sum()), summary=summary, launches=n["two_nn"],
+                route_launches=route_launches(n), expected_launches=chunks, **kernels,
                 **{k: counts.get(k) for k in ("chunks", "rounds", "active_pct", "polish_iters",
                                               "polish_accept_pct")},
                 stage_s={s["stage"]: s["seconds"] for s in stages}, ba=ba, **pw)
@@ -1107,15 +449,13 @@ def run_main_path(two_nn, device="cuda", F=48, W=640, H=480, static=False, phase
         raise AssertionError(f"ATE {err} >= 0.05")
     if not np.median(rel) < 2.0:
         raise AssertionError(f"median relative rotation error {np.median(rel)} >= 2 deg")
-    if launches != chunks or routes["wgmma_bf16"] != chunks:
-        raise AssertionError(f"matcher launched {routes}, expected {chunks} bf16 launches")
-    if kernel_failures:
-        raise AssertionError("; ".join(kernel_failures))
+    failures = bf16_launch_failures(n, chunks) + kernel_failures
+    if failures:
+        raise AssertionError("; ".join(failures))
     # the calibrated run's output is the stereo-panorama workflow's input
-    return launches, dict(poses_txt=poses_txt, gray=gray, color=color,
-                          intrinsics=(focal, W / 2.0, H / 2.0), launches=launches,
-                          polish_launches=polish,
-                          rot0=probe["rot0"], graph=probe["graph"], pairwise=pw)
+    return n, dict(poses_txt=poses_txt, gray=gray, color=color,
+                   intrinsics=(focal, W / 2.0, H / 2.0), launches=n["two_nn"],
+                   rot0=probe["rot0"], graph=probe["graph"], pairwise=pw)
 
 
 def run_determinism_phase(gray, color, graphs, device="cuda", reps=2):
@@ -1132,10 +472,10 @@ def run_determinism_phase(gray, color, graphs, device="cuda", reps=2):
     cfg.max_keypoints = 1024
     runs, secs = [], []
     for _ in range(reps):
-        sync(device)
+        kc.sync(device)
         t0 = time.perf_counter()
         f = detect_features(gray, color, cfg, device=device)
-        sync(device)
+        kc.sync(device)
         secs.append(round(time.perf_counter() - t0, 4))
         runs.append(f)
     fields = ("xy", "descriptor", "valid", "color", "counts")
@@ -1147,10 +487,10 @@ def run_determinism_phase(gray, color, graphs, device="cuda", reps=2):
     for name, (rot0, g, solver) in graphs.items():
         outs, rsecs = [], []
         for _ in range(reps):
-            sync(device)
+            kc.sync(device)
             t0 = time.perf_counter()
             rots, cost = optimize_rotations(rot0, g, solver=solver)
-            sync(device)
+            kc.sync(device)
             rsecs.append(round(time.perf_counter() - t0, 4))
             outs.append((rots, cost))
         rot[name] = dict(solver=solver, nodes=int(rot0.shape[0]), edges=int(g.edge_i.numel()),
@@ -1168,7 +508,7 @@ def run_determinism_phase(gray, color, graphs, device="cuda", reps=2):
         raise AssertionError(f"determinism failed: {failures}")
 
 
-def run_match_k4000(two_nn, reference, gray, color, device="cuda", K=4000):
+def run_match_k4000(gray, color, device="cuda", K=4000):
     """The main phase's frames through detect_features and match_pairs at
     the default keypoint count; then, chunk by chunk, the kernel's accepted
     matches against the plain version's on the same descriptors. Returns
@@ -1181,15 +521,15 @@ def run_match_k4000(two_nn, reference, gray, color, device="cuda", K=4000):
     cfg.max_keypoints = K
     t0 = time.perf_counter()
     feats = detect_features(gray, color, cfg, device=device)
-    sync(device)
+    kc.sync(device)
     detect_s = time.perf_counter() - t0
     pair_i, pair_j = all_pairs(len(gray))
     pairs = len(pair_i)
-    reset_counts(two_nn)
+    before = launch_counts()
     t0 = time.perf_counter()
     _, _, mmask = match_pairs(feats, pair_i, pair_j, cfg, device=device)
     match_s = time.perf_counter() - t0
-    launches, routes = two_nn.launches, dict(two_nn.route_launches)
+    n = launches_since(before)
 
     desc = feats.descriptor_dev.to(torch.bfloat16)
     valid = feats.valid_dev
@@ -1197,21 +537,23 @@ def run_match_k4000(two_nn, reference, gray, color, device="cuda", K=4000):
     for s in range(0, pairs, CHUNK):
         pi = torch.as_tensor(pair_i[s:s + CHUNK], device=device)
         pj = torch.as_tensor(pair_j[s:s + CHUNK], device=device)
-        b, u = match_agreement(two_nn(desc, valid, pi, pj, torch.bfloat16),
-                               reference(desc, valid, pi, pj, torch.bfloat16), valid[pj.long()])
+        b, u = kc.match_agreement(two_nearest_neighbors(desc, valid, pi, pj, torch.bfloat16),
+                                  two_nn_reference(desc, valid, pi, pj, torch.bfloat16),
+                                  valid[pj.long()])
         both, union = both + b, union + u
     agree = both / max(union, 1)
     chunks = math.ceil(pairs / CHUNK)
     phase("match_k4000", frames=len(gray), keypoints=K, mean_valid=float(feats.counts.mean()),
           pairs=pairs, detect_s=round(detect_s, 3), match_s=round(match_s, 4),
-          matches=int(mmask.sum()), launches=launches, route_launches=routes,
+          matches=int(mmask.sum()), launches=n["two_nn"], route_launches=route_launches(n),
           expected_launches=chunks, accepted_agreement=agree, accepted_union=union)
-    if launches != chunks or routes["wgmma_bf16"] != chunks:
-        raise AssertionError(f"matcher launched {routes}, expected {chunks} bf16 launches")
+    failures = bf16_launch_failures(n, chunks)
     if not agree >= 0.99:
-        raise AssertionError(f"kernel and plain version agree on {agree:.4f} < 0.99 of the "
-                             "accepted matches")
-    return launches
+        failures.append(f"kernel and plain version agree on {agree:.4f} < 0.99 of the "
+                        "accepted matches")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return n
 
 
 # sphericalsfm_tpu_torch.eval.suite SEQUENCES, four of fourteen
@@ -1241,50 +583,48 @@ def sequence_failures(rep, spec, out):
     return failures
 
 
-def run_uncalibrated_phase(two_nn, device="cuda"):
+def run_uncalibrated_phase(device="cuda"):
     """Four evaluation-suite sequences through suite.run_sequence (render,
     frontend, injected outliers, run_uncalibrated, evaluator), inward_out20
     the inward mode's; raises after all of them ran if any missed a bound.
-    Returns the phase's matcher and polish launches."""
+    Returns the phase's launch counts."""
     from sphericalsfm_tpu_torch.eval import suite
     from sphericalsfm_tpu_torch.pipeline.frontend import window_pairs
 
     specs = {s["name"]: s for s in suite.SEQUENCES}
     failed = {}
-    reset_counts(two_nn)
+    start = launch_counts()
     with tempfile.TemporaryDirectory() as out_root:
         for name in UNCALIB_SEQUENCES:
             cfg = suite.sequence_config(specs[name])
             pairs = len(window_pairs(specs[name]["frames"], cfg.frontend.adjacent_window,
                                      cfg.graph.num_frames_begin, cfg.graph.num_frames_end)[0])
-            before = polish_launches(), round_launches()
+            before = launch_counts()
             rep = suite.run_sequence(specs[name], out_root, device)
+            n = launches_since(before)
             rep["expected_launches"] = math.ceil(pairs / CHUNK)
             record = [json.loads(line) for line in open(os.path.join(out_root, name,
                                                                      "stages.jsonl"))
                       if '"estimate_pairwise"' in line][-1]
-            kernels, kernel_failures = ransac_launches(polish_launches() - before[0],
-                                                       round_launches() - before[1], record,
-                                                       pairs, cfg.ransac.pair_chunk)
+            kernels, kernel_failures = kc.ransac_launches(n["polish"], n["round"], record, pairs,
+                                                          cfg.ransac.pair_chunk)
             rep.update(kernels)
             failures = (sequence_failures(rep, specs[name], os.path.join(out_root, name))
                         + kernel_failures)
             phase("uncalibrated", **rep, failures=failures)
             if failures:
                 failed[name] = failures
-    launches, polish = two_nn.launches, polish_launches()
-    ROUND_LAUNCHES["uncalibrated"] = round_launches()
     if failed:
         raise AssertionError(f"uncalibrated sequences failed: {failed}")
-    return launches, polish
+    return launches_since(start)
 
 
-def run_modes_phase(two_nn, device="cuda", F=24, W=320, H=240, focal=260.0):
+def run_modes_phase(device="cuda", F=24, W=320, H=240, focal=260.0):
     """Five-point, six-point and COLMAP-database runs of the uncalibrated
     driver on one small render, held to the bounds of the JAX package's
-    driver tests. Returns the phase's matcher and polish launches: the
-    five-point mode polishes with the generic LM, the others with the
-    kernel, once a chunk of the `estimate_pairwise` record."""
+    driver tests. Returns the phase's launch counts: the five-point mode
+    launches neither RANSAC kernel, the others both, as the
+    `estimate_pairwise` record says (`kernel_checks.ransac_launches`)."""
     from sphericalsfm_tpu_torch.config import PipelineConfig
     from sphericalsfm_tpu_torch.eval.render import render_capture
     from sphericalsfm_tpu_torch.io.colmap import ColmapDatabase, write_database
@@ -1330,19 +670,19 @@ def run_modes_phase(two_nn, device="cuda", F=24, W=320, H=240, focal=260.0):
 
     def counted_eig(M):
         """eig_real_batched, counted and timed (synchronized each side)."""
-        sync(device)
+        kc.sync(device)
         t0 = time.perf_counter()
         out = real_eig(M)
-        sync(device)
+        kc.sync(device)
         eig_calls.append((M[..., 0, 0].numel(), time.perf_counter() - t0))
         return out
 
     failed = {}
-    launches = polish = 0
+    start = launch_counts()
     for mode, bound in (("five_point", 0.15), ("six_point", 0.15), ("colmap_db", 0.05)):
         cfg = config(small=mode != "colmap_db")
         with tempfile.TemporaryDirectory() as out:
-            reset_counts(two_nn)
+            before = launch_counts()
             eig_calls.clear()
             five_point.eig_real_batched = counted_eig
             t0 = time.perf_counter()
@@ -1354,46 +694,44 @@ def run_modes_phase(two_nn, device="cuda", F=24, W=320, H=240, focal=260.0):
                     setattr(cfg, mode, True)
                     m, est = run_uncalibrated(None, out, cfg, gray=gray, color=color,
                                               device=device)
-                sync(device)
+                kc.sync(device)
             finally:
                 five_point.eig_real_batched = real_eig
             wall = time.perf_counter() - t0
+            n = launches_since(before)
             stages = [json.loads(line) for line in open(os.path.join(out, "stages.jsonl"))]
             ok_files = all(os.path.exists(os.path.join(out, f))
                            for f in ("calib.txt", "sparse/final/cameras.txt"))
         err = abs(est - focal) / focal
         fs = [s for s in stages if s["stage"] == "focal_search"][-1]
         pw = [s for s in stages if s["stage"] == "estimate_pairwise"][-1]
-        mode_polish = polish_launches()
         pairs = next(s["pairs"] for s in stages if "pairs" in s)
-        kernels, failures = ransac_launches(mode_polish, round_launches(), pw, pairs,
-                                            cfg.ransac.pair_chunk, kernels=mode != "five_point")
-        ROUND_LAUNCHES[f"modes_{mode}"] = round_launches()
+        kernels, failures = kc.ransac_launches(n["polish"], n["round"], pw, pairs,
+                                               cfg.ransac.pair_chunk,
+                                               kernels=mode != "five_point")
         if not err < bound:
             failures.append(f"focal {est} not within {bound:.0%} of {focal}")
         if not ok_files:
             failures.append("calib.txt or sparse/final missing")
         if mode == "six_point" and not fs.get("sixpoint", {}).get("pairs_used", 0) > 0:
             failures.append("six-point RANSAC used no pairs")
-        if two_nn.launches == 0:
+        if n["two_nn"] == 0:
             failures.append("matcher never launched")
         if mode == "five_point" and not eig_calls:
             failures.append("the five-point solver never took eig_real_batched")
-        launches += two_nn.launches
-        polish += mode_polish
         extra = dict(eig_real_batched_calls=len(eig_calls),
-                     eig_matrices=sum(n for n, _ in eig_calls),
+                     eig_matrices=sum(count for count, _ in eig_calls),
                      eig_real_batched_s=round(sum(s for _, s in eig_calls), 3),
                      wall_s_on_torch_linalg_eig="34-44") if mode == "five_point" else {}
         phase("modes", mode=mode, frames=F, size=f"{W}x{H}", focal_true=focal,
               focal_est=est, focal_rel_err=err, bound=bound, wall_s=round(wall, 3), **extra,
-              launches=two_nn.launches, **kernels, points=int(m.point_valid().sum()),
+              launches=n["two_nn"], **kernels, points=int(m.point_valid().sum()),
               stage_s={s["stage"]: s["seconds"] for s in stages}, failures=failures)
         if failures:
             failed[mode] = failures
     if failed:
         raise AssertionError(f"modes failed: {failed}")
-    return launches, polish
+    return launches_since(start)
 
 
 def general_problems(seed, batch, n_corr, device="cuda"):
@@ -1556,16 +894,16 @@ def run_solvers_phase(device="cuda"):
 BENCH_ROWS = ("ba", "six_point", "detection", "matcher")
 
 
-def run_bench_phase(two_nn, device="cuda"):
+def run_bench_phase(device="cuda"):
     """The round bench's rows that no other phase holds
     (sphericalsfm_tpu_torch/eval/bench.py, the rows of bench_torch.py): BA on
     the 64-camera bench scene, the shared-focal six-point solver, detection
     ms per frame and the matcher at K = 4096. One line per row with its
     gates beside JAX's values; any gate missed fails the phase. Returns the
-    phase's bf16 and float32 matcher launches."""
+    phase's launch counts."""
     from sphericalsfm_tpu_torch.eval import bench
 
-    reset_counts(two_nn)
+    before = launch_counts()
     rows = {}
     for name in BENCH_ROWS:
         t0 = time.perf_counter()
@@ -1573,12 +911,12 @@ def run_bench_phase(two_nn, device="cuda"):
         phase("bench", row=name, seconds=round(time.perf_counter() - t0, 3), **rows[name],
               gates=bench.row_gates(name, rows[name]))
     failures = bench.gate_failures(rows)
-    routes = dict(two_nn.route_launches)
-    if not routes["wgmma_bf16"] or not routes["fma_f32"]:
-        failures.append(f"matcher row launched {routes}, expected both kernels")
+    n = launches_since(before)
+    if not n["wgmma_bf16"] or not n["fma_f32"]:
+        failures.append(f"matcher row launched {route_launches(n)}, expected both kernels")
     if failures:
         raise AssertionError(f"bench failed: {failures}")
-    return routes["wgmma_bf16"], routes["fma_f32"]
+    return n
 
 
 def shifted_pair(h: int, w: int, seed: int = 1):
@@ -1635,7 +973,7 @@ def run_flow_phase(pair_gray, device="cuda", W=640, H=480, levels=4, iters=60):
     t0 = time.perf_counter()
     u, v = horn_schunck_flow(torch.from_numpy(I0).to(device), torch.from_numpy(I1).to(device),
                              num_levels=levels, iters_per_level=iters)
-    sync(device)
+    kc.sync(device)
     shift_s = time.perf_counter() - t0
     med_u = float(u[20:-20, 20:-20].median())
     med_v = float(v[20:-20, 20:-20].median())
@@ -1646,7 +984,7 @@ def run_flow_phase(pair_gray, device="cuda", W=640, H=480, levels=4, iters=60):
         t0 = time.perf_counter()
         fu, fv = horn_schunck_flow(torch.stack([g[0], g[1]]), torch.stack([g[1], g[0]]),
                                    num_levels=levels, iters_per_level=iters)
-        sync(dev)
+        kc.sync(dev)
         secs[dev] = round(time.perf_counter() - t0, 3)
         flows[dev] = (fu.cpu(), fv.cpu())
     d = torch.cat([(flows[device][0] - flows["cpu"][0]).abs().flatten(),
@@ -1696,7 +1034,7 @@ def stitch(poses_path, color, intrinsics, out, pano_width, nphi, device="cuda"):
     t0 = time.perf_counter()
     sph = make_stereo_panoramas(poses_path, color, intrinsics, out, pano_width=pano_width,
                                 nphi=nphi, device=device, stats=stats)
-    sync(device)
+    kc.sync(device)
     wall = time.perf_counter() - t0
     files = ([f"cylindrical{p}.png" for p in range(nphi)]
              + [f"spherical{p}.png" for p in range(nphi)]
@@ -1787,7 +1125,7 @@ def run_circle_views_phase(poses_path, workflow, out, device="cuda", num_views=6
     t0 = time.perf_counter()
     n = make_circle_views(poses_path, workflow["color"], workflow["intrinsics"], out,
                           num_views=num_views, device=device, stats=stats)
-    sync(device)
+    kc.sync(device)
     wall = time.perf_counter() - t0
     names = sorted(os.listdir(out))
     nonzero = [float(np.mean(read_png(os.path.join(out, f)).sum(-1) > 0)) for f in names]
@@ -1811,10 +1149,10 @@ def rms_px(cost, K):
 def timed_ba(ba, prob, device, **kw):
     """One bundle_adjust call: result, wall seconds and peak device memory."""
     torch.cuda.reset_peak_memory_stats()
-    sync(device)
+    kc.sync(device)
     t0 = time.perf_counter()
     res = ba.bundle_adjust(prob, **kw)
-    sync(device)
+    kc.sync(device)
     return res, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
 
 
@@ -1837,7 +1175,7 @@ def matvec_bound(prob, K, sd_bytes=4):
     vectors in and out — over the memory rate. Returns (ms, bytes)."""
     C, P = prob.cam_t.shape[0], prob.points.shape[0]
     nbytes = K * ((18 + 6 + 3) * sd_bytes + 2 * 8) + P * 12 * sd_bytes + 2 * C * 6 * sd_bytes
-    return 1e3 * nbytes / H100_HBM_BYTES, nbytes
+    return 1e3 * nbytes / kc.H100_HBM_BYTES, nbytes
 
 
 def run_ba_scale_phase(device="cuda", sizes=None):
@@ -1890,16 +1228,16 @@ def run_ba_scale_phase(device="cuda", sizes=None):
 
     lam = torch.full((), 1e-4, dtype=torch.float32, device=device)
     state = (prep.focal, prep.cam_t, prep.cam_r, prep.points, prep, lam, 1.0, torch.float32)
-    assembly_ms = bench.device_ms(lambda: ba._assemble_reduced(*state), device, reps=5, warmup=1)
+    assembly_ms = kc.device_ms(lambda: ba._assemble_reduced(*state), device, reps=5, warmup=1)
     rs = ba._assemble_reduced(*state)
     op = ba._pcg_operator(rs, lam, torch.float32)
     op_c = ba._pcg_operator(rs, lam, torch.float32, ba._coarse_tables(prep, 16))
     gen = torch.Generator(device=device).manual_seed(0)
     vc = torch.randn(rs.free_c.shape, generator=gen, device=device) * rs.free_c
     vf = torch.zeros((), device=device)
-    matvec_ms = bench.device_ms(lambda: op.matvec(vc, vf), device, reps=50)
-    precond_ms = bench.device_ms(lambda: op.precond(vc, vf), device, reps=50)
-    coarse_precond_ms = bench.device_ms(lambda: op_c.precond(vc, vf), device, reps=50)
+    matvec_ms = kc.device_ms(lambda: op.matvec(vc, vf), device, reps=50)
+    precond_ms = kc.device_ms(lambda: op.precond(vc, vf), device, reps=50)
+    coarse_precond_ms = kc.device_ms(lambda: op_c.precond(vc, vf), device, reps=50)
     bound_ms, nbytes = matvec_bound(prep, K)
     del rs, op, op_c
 
@@ -1937,7 +1275,7 @@ def equal_tables(a, b):
     return all(np.array_equal(x, y) for x, y in zip(a, b))
 
 
-def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SHARDS,
+def run_mesh_phase(gray, color, device="cuda", shards=MESH_SHARDS,
                    ba_sizes=None):
     """The sharded stages on a mesh of `shards` logical shards of one card,
     each beside the single-device run on the same card (times labelled
@@ -1946,8 +1284,8 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
     retriangulation and BA of the main phase's capture, the ring matcher on
     the float32 kernel against match_pairs_compact and the kernel's plain
     version, and the ba_scale scene through distributed_bundle_adjust.
-    Returns the bf16 launches of the sharded matching, the f32 launches of
-    the ring and the polish launches of the sharded pairwise RANSAC."""
+    Returns the launch counts of its runs on the mesh: the sharded
+    matching, the sharded pairwise RANSAC and the ring."""
     import copy
 
     from sphericalsfm_tpu_torch.device import generator
@@ -1989,18 +1327,18 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
         and torch.equal(feats0.descriptor_dev, feats1.descriptor_dev))
 
     pi, pj = all_pairs(F)
-    reset_counts(two_nn)
+    before = launch_counts()
     m0, secs["match_single_s"] = timed_once(
         lambda: match_pairs(feats0, pi, pj, cfg.frontend, device=dev), dev)
-    single_launches = two_nn.launches
-    reset_counts(two_nn)
+    n_match_single = launches_since(before)
+    before = launch_counts()
     m1, secs["match_mesh_s"] = timed_once(lambda: match_pairs(feats0, pi, pj, cfg.frontend,
                                                               mesh=mesh), dev)
-    mesh_launches, mesh_routes = two_nn.launches, dict(two_nn.route_launches)
+    n_match = launches_since(before)
     chunks = math.ceil(len(pi) / CHUNK)
     expected = sum(min(shards, len(pi) - s) for s in range(0, len(pi), CHUNK))
-    out.update(match_equal=equal_tables(m0, m1), single_launches=single_launches,
-               mesh_launches=mesh_launches, mesh_route_launches=mesh_routes,
+    out.update(match_equal=equal_tables(m0, m1), single_launches=n_match_single["two_nn"],
+               mesh_launches=n_match["two_nn"], mesh_route_launches=route_launches(n_match),
                expected_mesh_launches=expected)
 
     intr = Intrinsics(focal, W / 2.0, H / 2.0)
@@ -2008,21 +1346,20 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
                  min_num_inliers=cfg.ransac.min_num_inliers,
                  num_hypotheses=cfg.ransac.num_hypotheses, chunk_size=cfg.ransac.pair_chunk,
                  round_size=cfg.ransac.round_size, confidence=cfg.ransac.confidence)
-    reset_counts(two_nn)
+    before = launch_counts()
     pw0, secs["pairwise_single_s"] = timed_once(lambda: estimate_pairwise(
         generator(dev, 0), feats0.xy, pi, pj, *m0, intr, device=dev, **pw_kw), dev)
-    single_polish, single_rounds = polish_launches(), round_launches()
-    reset_counts(two_nn)
+    n_pairwise_single = launches_since(before)
+    before = launch_counts()
     pw1, secs["pairwise_mesh_s"] = timed_once(lambda: estimate_pairwise(
         generator(dev, 0), feats0.xy, pi, pj, *m0, intr, mesh=mesh, **pw_kw), dev)
-    mesh_polish, mesh_rounds = polish_launches(), round_launches()
-    ROUND_LAUNCHES["mesh"] = mesh_rounds
+    n_pairwise = launches_since(before)
     kernels = {}
     kernel_failures = []
-    for name, pol, rounds, pw, nd in (("single", single_polish, single_rounds, pw0, 0),
-                                      ("mesh", mesh_polish, mesh_rounds, pw1, shards)):
-        kernels[name], fails = ransac_launches(pol, rounds, pw.counts, len(pi),
-                                               cfg.ransac.pair_chunk, nd)
+    for name, n, pw, nd in (("single", n_pairwise_single, pw0, 0),
+                            ("mesh", n_pairwise, pw1, shards)):
+        kernels[name], fails = kc.ransac_launches(n["polish"], n["round"], pw.counts, len(pi),
+                                                  cfg.ransac.pair_chunk, nd)
         kernel_failures += [f"{name}: {f}" for f in fails]
     out.update(ransac_launches=kernels)
     rot_diff = np.rad2deg(np.linalg.norm(pw0.r - pw1.r, axis=-1))
@@ -2076,10 +1413,9 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
     # kernel's plain version
     desc32, valid = feats0.descriptor_dev.float(), feats0.valid_dev
     M = cfg.frontend.max_matches_per_pair
-    reset_counts(two_nn)
+    before = launch_counts()
     ring, secs["ring_mesh_s"] = timed_once(lambda: ring_match_pairs(mesh, desc32, valid, M), dev)
-    ring_launches = two_nn.route_launches["fma_f32"]
-    ring_total = two_nn.launches
+    n_ring = launches_since(before)
     ref, secs["match_f32_single_s"] = timed_once(lambda: match_pairs_compact(
         desc32, valid, torch.as_tensor(pi, device=dev), torch.as_tensor(pj, device=dev), M,
         compute_dtype=torch.float32), dev)
@@ -2089,15 +1425,15 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
     m1s, m2s, nns = _block_two_nn(desc32[Bf:2 * Bf], desc32[:Bf], valid[Bf:2 * Bf], valid[:Bf])
     b_i = torch.arange(Bf, device=dev).repeat(Bf)
     b_j = Bf + torch.arange(Bf, device=dev).repeat_interleave(Bf)
-    plain = reference(torch.cat([desc32[:Bf], desc32[Bf:2 * Bf]]),
-                      torch.cat([valid[:Bf], valid[Bf:2 * Bf]]), b_i, b_j, torch.float32)
-    ring_check = bench.plain_check((m1s.reshape(Bf * Bf, -1), m2s.reshape(Bf * Bf, -1),
-                                    nns.reshape(Bf * Bf, -1)), plain, valid[b_j.long()],
-                                   torch.float32)
+    plain = two_nn_reference(torch.cat([desc32[:Bf], desc32[Bf:2 * Bf]]),
+                             torch.cat([valid[:Bf], valid[Bf:2 * Bf]]), b_i, b_j, torch.float32)
+    ring_check = kc.plain_check((m1s.reshape(Bf * Bf, -1), m2s.reshape(Bf * Bf, -1),
+                                 nns.reshape(Bf * Bf, -1)), plain, valid[b_j.long()],
+                                torch.float32)
     if not ring_check["ok"]:
         raise AssertionError(f"ring step f32 != plain version: {ring_check}")
     ring_err = ring_check["max_abs_err"]
-    out.update(ring_equal=ring_equal, ring_launches=ring_launches,
+    out.update(ring_equal=ring_equal, ring_launches=n_ring["fma_f32"],
                ring_expected_launches=shards * shards, ring_step_max_abs_err=ring_err,
                ring_matches=int(ring[4].sum()))
 
@@ -2131,10 +1467,8 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
         failures.append("sharded detection differs from one device")
     if not out["match_equal"]:
         failures.append("sharded matching differs from one device")
-    if mesh_launches != expected or mesh_routes["wgmma_bf16"] != expected:
-        failures.append(f"sharded matching launched {mesh_routes}, expected {expected} bf16")
-    if single_launches != chunks:
-        failures.append(f"single-device matching launched {single_launches}, expected {chunks}")
+    failures += [f"sharded {f}" for f in bf16_launch_failures(n_match, expected)]
+    failures += [f"single-device {f}" for f in bf16_launch_failures(n_match_single, chunks)]
     failures += kernel_failures
     if not (out["pairwise_keep_equal"] and out["pairwise_max_inlier_diff"] <= 3
             and out["pairwise_max_rot_diff_deg"] < 0.1):
@@ -2146,9 +1480,9 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
                         f"{out['optimize_repeat_bit_equal']}")
     if not ring_equal:
         failures.append("ring differs from the float32 matcher")
-    if ring_launches != shards * shards or ring_total != ring_launches:
-        failures.append(f"ring launched {ring_launches} f32 of {ring_total}, expected "
-                        f"{shards * shards}")
+    if n_ring["fma_f32"] != shards * shards or n_ring["two_nn"] != n_ring["fma_f32"]:
+        failures.append(f"ring launched {route_launches(n_ring)}, expected {shards * shards} "
+                        "f32")
     bs = out["ba_scale"]
     if not (ba_rel <= 1e-3 and bs["mesh_cost"] < 0.5 * bs["initial_cost"]
             and bs["repeat_bit_equal"]):
@@ -2156,9 +1490,9 @@ def run_mesh_phase(two_nn, reference, gray, color, device="cuda", shards=MESH_SH
     if failures:
         raise AssertionError(f"mesh failed: {failures}")
     if visible >= 2:
-        n = 2 if visible < 4 else 4
-        run_main_path(two_nn, device=device, devices=n, phase_name="driver_on_mesh")
-    return mesh_launches, ring_launches, mesh_polish
+        cards = 2 if visible < 4 else 4
+        run_main_path(device=device, devices=cards, phase_name="driver_on_mesh")
+    return {k: n_match[k] + n_pairwise[k] + n_ring[k] for k in n_match}
 
 
 def run_multihost_phase(device="cuda", shards=2, timeout=300):
@@ -2216,57 +1550,20 @@ def run_multihost_phase(device="cuda", shards=2, timeout=300):
         raise AssertionError(f"PCG {res['cost_pcg']} vs dense {res['cost']}")
 
 
-_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def busy_share(trace_path):
-    """Device busy share of a torch.profiler Chrome trace: the union of the
-    kernel, memcpy and memset intervals over the span of all complete
-    ("X") events. Streams the file line by line, reading each event's
-    "ph", "cat", "ts" and "dur" fields in order, so a multi-GB trace is not
-    loaded whole."""
-    import re
-
-    field = re.compile(r'"(ph|cat|ts|dur)": "?([^",]*)"?')
-    dev, lo, hi, events = [], math.inf, -math.inf, 0
-    ph = cat = ts = None
-    with open(trace_path) as f:
-        for line in f:
-            for key, val in field.findall(line):
-                if key == "ph":
-                    ph, cat, ts = val, None, None
-                elif key == "cat":
-                    cat = val
-                elif key == "ts":
-                    ts = float(val)
-                elif ph == "X" and ts is not None:
-                    end = ts + float(val)
-                    events += 1
-                    lo, hi = min(lo, ts), max(hi, end)
-                    if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
-                        dev.append((ts, end))
-    dev.sort()
-    busy, end = 0.0, -math.inf
-    for a, b in dev:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    wall = hi - lo
-    return dict(busy_share=busy / wall if wall > 0 else 0.0, device_busy_s=busy / 1e6,
-                traced_s=wall / 1e6, events=events, device_events=len(dev))
-
-
 LONG_CAPTURE = dict(F=540, W=640, H=480, focal=560.0, seed=7)  # eval suite's base_f560 look
 
 
-def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
+def run_long_capture_phase(device="cuda", spec=LONG_CAPTURE):
     """The calibrated driver on a 540-frame sweep (18 s of 30 fps video,
     every frame a keyframe): windows matching (2514 pairs, 79 launches),
     rotation averaging on the PCG (540 > 400 frames), all four BA passes on
     the PCG (540 cameras → 624 on the JAX map's ladder > 512), cold, traced
-    with cfg.profile_dir. Then the joint rotations + focal graph on the
-    run's rotation graph, with its measured relative rotations and with the
-    ground truth's, by the PCG and the dense solve."""
+    with cfg.profile_dir: its device busy share by the benchmark's reduction
+    of a trace (`sfmbench.trace.reduce_trace`). Then the joint rotations +
+    focal graph on the run's rotation graph, with its measured relative
+    rotations and with the ground truth's, by the PCG and the dense solve.
+    Returns the run's launch counts."""
+    from sfmbench.trace import reduce_trace
     from sphericalsfm_tpu_torch.eval import suite
     from sphericalsfm_tpu_torch.eval.metrics import ate, rotation_error_deg
     from sphericalsfm_tpu_torch.eval.render import render_capture
@@ -2295,7 +1592,7 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
         graph.update(rot0=rot0, g=g)
         return real(rot0, g, *args, **kw)
 
-    reset_counts(two_nn)
+    before = launch_counts()
     ba.bundle_adjust.solves.update(dense=0, pcg=0)
     pose_graph.optimize_rotations.solves.update(dense=0, pcg=0)
     with tempfile.TemporaryDirectory() as out:
@@ -2305,18 +1602,19 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
             t0 = time.perf_counter()
             m = driver.run_calibrated(None, Intrinsics(focal, W / 2.0, H / 2.0), out, cfg,
                                       gray=gray, color=color, device=device)
-            sync(device)
+            kc.sync(device)
             wall = time.perf_counter() - t0
         finally:
             driver.optimize_rotations = real
-        launches, routes = two_nn.launches, dict(two_nn.route_launches)
-        polish, rounds = polish_launches(), round_launches()
+        n = launches_since(before)
         ba_solves = dict(ba.bundle_adjust.solves)
         pg_solves = dict(pose_graph.optimize_rotations.solves)
         trace = os.path.join(cfg.profile_dir, "trace.json")
         trace_bytes = os.path.getsize(trace) if os.path.exists(trace) else 0
         t0 = time.perf_counter()
-        busy = busy_share(trace) if trace_bytes else {}
+        red = reduce_trace(trace) if trace_bytes else {}
+        busy = {k: red[k] for k in ("busy_share", "busy_s", "window_s", "kernels", "idle_gaps")
+                if k in red}
         busy["parse_s"] = round(time.perf_counter() - t0, 3)
         missing = [f for f in ("poses.txt", "points.obj", "cameras.obj", "summary.json",
                                "stages.jsonl", "frontend.npz", "pre-loop-cameras.obj",
@@ -2332,9 +1630,8 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
     rel = rotation_error_deg(np.einsum("nij,kj->nik", R, R[0]),
                              np.einsum("nij,kj->nik", R_gt, R_gt[0])).numpy()
     record = [s for s in stages if s["stage"] == "estimate_pairwise"][-1]
-    kernels, kernel_failures = ransac_launches(polish, rounds, record, pairs,
-                                               cfg.ransac.pair_chunk)
-    ROUND_LAUNCHES["long_capture"] = rounds
+    kernels, kernel_failures = kc.ransac_launches(n["polish"], n["round"], record, pairs,
+                                                  cfg.ransac.pair_chunk)
     ba_passes = {}
     for s in stages:
         for k in range(1, 5):
@@ -2364,12 +1661,13 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
             _, fm, _ = pose_graph.optimize_rotations_and_focal(graph["rot0"], gg, 1.0, 0.5, 2.0,
                                                                solver=solver)
             mult[name][solver] = float(fm)
-            sync(device)
+            kc.sync(device)
             focal_s[f"{name}_{solver}"] = round(time.perf_counter() - t0, 3)
     phase("long_capture", frames=F, size=f"{W}x{H}", pairs=pairs, render_s=round(render_s, 3),
           wall_s=round(wall, 3), ate=err, median_rel_rot_deg=float(np.median(rel)),
-          points=int(m.point_valid().sum()), launches=launches, route_launches=routes,
-          expected_launches=chunks, **kernels, ba_solves=ba_solves,
+          points=int(m.point_valid().sum()), launches=n["two_nn"],
+          route_launches=route_launches(n), expected_launches=chunks, **kernels,
+          ba_solves=ba_solves,
           rotation_solves=pg_solves,
           ba=ba_passes, stage_s={s["stage"]: s["seconds"] for s in stages},
           trace_bytes=trace_bytes, trace=busy, focal_mult=mult, focal_graph_s=focal_s,
@@ -2381,9 +1679,7 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
         failures.append(f"ATE {err} >= 0.05")
     if not np.median(rel) < 2.0:
         failures.append(f"median relative rotation error {np.median(rel)} >= 2 deg")
-    if launches != chunks or routes["wgmma_bf16"] != chunks:
-        failures.append(f"matcher launched {routes}, expected {chunks} bf16 launches")
-    failures += kernel_failures
+    failures += bf16_launch_failures(n, chunks) + kernel_failures
     if ba_solves != {"dense": 0, "pcg": 4}:
         failures.append(f"BA passes by solver {ba_solves}, expected 4 on the PCG")
     if pg_solves != {"dense": 0, "pcg": 1}:
@@ -2397,7 +1693,53 @@ def run_long_capture_phase(two_nn, device="cuda", spec=LONG_CAPTURE):
         failures.append(f"focal multipliers {mult}")
     if failures:
         raise AssertionError(f"long_capture failed: {failures}")
-    return launches, polish
+    return n
+
+
+# each kernel's entry of the kernel line: (name, its counter in
+# `launch_counts`, its source under csrc/, what it replaces in the JAX
+# package, the path whose launches it reports, its phase's extra measures)
+KERNEL_RECORDS = (
+    ("two_nn", "wgmma_bf16", "two_nn_wgmma.cu", "sphericalsfm_tpu/ops/pallas_matching.py:32",
+     "main", ("max_abs_err", "library_ms", "by_shape")),
+    ("two_nn_f32", "fma_f32", "two_nn.cu", "sphericalsfm_tpu/ops/pallas_matching.py:32",
+     "mesh", ("max_abs_err", "library_ms", "by_shape")),
+    ("spherical_polish", "polish", "spherical_polish.cu",
+     "sphericalsfm_tpu/ransac/spherical.py:56 (plain XLA, no Pallas kernel)", "main",
+     ("r_rel_max",)),
+    ("spherical_round", "round", "spherical_round.cu",
+     "sphericalsfm_tpu/ransac/spherical.py (plain XLA, no Pallas kernel)", "main",
+     ("E_gap_quantiles",)),
+)
+# the kernel phase's timing keys of the float32 route, by the bf16 route's
+F32_KEYS = dict(ms="fma_f32_ms", plain_ms="plain_f32_ms", library_ms="library_f32_ms",
+                bound_ms="f32_bound_ms", bound_by="f32_bound_by",
+                share_of_bound="f32_share_of_bound")
+
+
+def matcher_result(k: dict, name: str) -> dict:
+    """The kernel phase's result `k` as one matcher route's phase result:
+    its times and bound at the main path's chunk, its largest error against
+    the plain version and its times at every shape."""
+    bf16 = name == "two_nn"
+    keys = {key: key if bf16 else col for key, col in F32_KEYS.items()}
+    return dict({key: k["timing"]["32x1024"][col] for key, col in keys.items()},
+                max_abs_err=k["max_abs_err" if bf16 else "f32_max_abs_err"],
+                shape=f"32x1024 {'bf16' if bf16 else 'float32'}",
+                by_shape={shape: {key: t[col] for key, col in keys.items()}
+                          for shape, t in k["timing"].items()})
+
+
+def kernel_record(name, counter, source, replaces, path, extra, result, counts) -> dict:
+    """One kernel's entry of the kernel line: its source, what it replaces,
+    its launches on `path` and by phase (`counts`: phase -> launch counts),
+    and its phase `result`'s times, bound, shape and `extra` measures."""
+    by_phase = {ph: n[counter] for ph, n in counts.items()}
+    return {"name": name, "route": "cuda", "source": f"sphericalsfm_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": by_phase[path], "launches_path": path,
+            **{key: result[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "shape",
+                                            *extra)},
+            "launches_by_phase": by_phase}
 
 
 def main() -> int:
@@ -2408,7 +1750,6 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from sphericalsfm_tpu_torch.device import resolve_device
     from sphericalsfm_tpu_torch.ops import cuda_libs
-    from sphericalsfm_tpu_torch.ops import matching_kernel as mk
 
     resolve_device("cuda")  # TF32 off
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2420,41 +1761,35 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = cuda_libs.build_libraries(verbose=True)
-    two_nn, reference = mk.two_nearest_neighbors, mk.two_nn_reference
     phase("build", seconds=round(time.perf_counter() - t0, 3),
           libraries={k: os.path.relpath(v, ROOT) for k, v in libs.items()})
 
-    k, tables = check_kernel(two_nn, reference)
-    k["timing"] = {name: time_kernel(two_nn, reference, tables[name])
+    k, tables = check_kernel()
+    k["timing"] = {name: kc.time_kernel(two_nearest_neighbors, two_nn_reference, tables[name])
                    for name in ("32x1024", "32x4000")}
     phase("kernel", **k)
     del tables
-    pol = run_polish_phase()
-    rnd = run_round_phase()
-    ROUND_LAUNCHES["round"] = rnd["launches"]
+    results = {"two_nn": matcher_result(k, "two_nn"),
+               "two_nn_f32": matcher_result(k, "two_nn_f32"),
+               "spherical_polish": run_polish_phase(), "spherical_round": run_round_phase()}
+    # each phase's launches by kernel, over the runs it checks
+    counts = {"polish": results["spherical_polish"]["counts"],
+              "round": results["spherical_round"]["counts"]}
 
-    main_launches, workflow = run_main_path(two_nn)
-    launches = {"main": main_launches}
-    # the final polish's launches by path, each checked there: one a chunk a part
-    polish = {"polish": pol["launches"], "main": workflow["polish_launches"]}
+    counts["main"], workflow = run_main_path()
     run_determinism_phase(workflow["gray"], workflow["color"],
                           {s: (workflow["rot0"], workflow["graph"], s) for s in ("dense", "pcg")})
-    launches["static_ransac"], static = run_main_path(two_nn, static=True)
-    polish["static_ransac"] = static["polish_launches"]
-    del static
+    counts["static_ransac"] = run_main_path(static=True)[0]
     # the adaptive engine again, warm, for its pairwise seconds beside
     # the static run's in one process
-    polish["adaptive_warm"] = run_main_path(two_nn, phase_name="adaptive_warm")[1][
-        "polish_launches"]
-    launches["match_k4000"] = run_match_k4000(two_nn, reference, workflow["gray"],
-                                              workflow["color"])
-    launches["mesh"], launches["ring"], polish["mesh"] = run_mesh_phase(
-        two_nn, reference, workflow["gray"], workflow["color"])
+    counts["adaptive_warm"] = run_main_path(phase_name="adaptive_warm")[0]
+    counts["match_k4000"] = run_match_k4000(workflow["gray"], workflow["color"])
+    counts["mesh"] = run_mesh_phase(workflow["gray"], workflow["color"])
     run_multihost_phase()
-    launches["uncalibrated"], polish["uncalibrated"] = run_uncalibrated_phase(two_nn)
-    launches["modes"], polish["modes"] = run_modes_phase(two_nn)
+    counts["uncalibrated"] = run_uncalibrated_phase()
+    counts["modes"] = run_modes_phase()
     run_solvers_phase()
-    launches["bench"], launches["bench_f32"] = run_bench_phase(two_nn)
+    counts["bench"] = run_bench_phase()
     with tempfile.TemporaryDirectory() as tmp:
         case5 = config5_case(tmp)
         flows = run_flow_phase(case5["pair"][0])
@@ -2464,55 +1799,9 @@ def main() -> int:
     del workflow
     run_ba_scale_phase()
     torch.cuda.empty_cache()
-    launches["long_capture"], polish["long_capture"] = run_long_capture_phase(two_nn)
+    counts["long_capture"] = run_long_capture_phase()
 
-    t_main = k["timing"]["32x1024"]
-    bf16_keys = {c: c for c in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                                "share_of_bound")}
-    f32_keys = {"ms": "fma_f32_ms", "plain_ms": "plain_f32_ms", "library_ms": "library_f32_ms",
-                "bound_ms": "f32_bound_ms", "bound_by": "f32_bound_by",
-                "share_of_bound": "f32_share_of_bound"}
-    routes = (("two_nn", "two_nn_wgmma.cu", "main", k["max_abs_err"], bf16_keys, "bf16"),
-              ("two_nn_f32", "two_nn.cu", "ring", k["f32_max_abs_err"], f32_keys, "float32"))
-    kernels = [{
-        "name": name,
-        "route": "cuda",
-        "source": f"sphericalsfm_tpu_torch/csrc/{src}",
-        "replaces": "sphericalsfm_tpu/ops/pallas_matching.py:32",
-        "launches": launches[path],
-        "launches_path": path,
-        "max_abs_err": err,
-        **{key: t_main[keys[key]] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                              "library_ms")},
-        "shape": f"32x1024 {dtype}",
-        "launches_by_phase": launches,
-        "by_shape": {shape: {key: t[col] for key, col in keys.items()}
-                     for shape, t in k["timing"].items()},
-    } for name, src, path, err, keys, dtype in routes]
-    kernels.append({
-        "name": "spherical_polish",
-        "route": "cuda",
-        "source": "sphericalsfm_tpu_torch/csrc/spherical_polish.cu",
-        "replaces": "sphericalsfm_tpu/ransac/spherical.py:56 (plain XLA, no Pallas kernel)",
-        "launches": polish["main"],
-        "launches_path": "main",
-        "r_rel_max": pol["r_rel_max"],
-        **{key: pol[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
-        "shape": f"{pol['pairs']}x{pol['matches']} float64",
-        "launches_by_phase": polish,
-    })
-    kernels.append({
-        "name": "spherical_round",
-        "route": "cuda",
-        "source": "sphericalsfm_tpu_torch/csrc/spherical_round.cu",
-        "replaces": "sphericalsfm_tpu/ransac/spherical.py (plain XLA, no Pallas kernel)",
-        "launches": ROUND_LAUNCHES["main"],
-        "launches_path": "main",
-        "E_gap_quantiles": rnd["E_gap_quantiles"],
-        **{key: rnd[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
-        "shape": f"{rnd['pairs']}x{rnd['triples']}x{rnd['matches']} float64",
-        "launches_by_phase": ROUND_LAUNCHES,
-    })
+    kernels = [kernel_record(*rec, results[rec[0]], counts) for rec in KERNEL_RECORDS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

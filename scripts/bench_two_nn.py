@@ -6,15 +6,17 @@
 
 For each shape (pairs x keypoints, optionally `:share` of invalid rows,
 2% by default; unit-norm random descriptors made from a seed), checks both
-routes against the plain version (chip_smoke.py's tolerances), then times
-the bf16 route, the float32 FMA route, the plain version and the library
-yardstick in bf16 and float32 with chip_smoke.py's timer and prints one
-JSON line with both routes' bounds; then the card's name and power limit.
+routes against the plain version, then times the bf16 route, the float32
+FMA route, the plain version and the library yardstick in bf16 and float32
+and prints one JSON line with both routes' bounds; then the card's name and
+power limit. The inputs, tolerances, timer and bounds are the matcher's
+contract in `sphericalsfm_tpu_torch/eval/kernel_checks.py`, taken from this
+checkout.
 
-`--root` imports `sphericalsfm_tpu_torch` from another checkout, for
-example a parent commit unpacked under `build/`, so that two versions can
-be timed in one call on one card. A checkout whose wrapper has one kernel
-for both dtypes times that kernel on both routes.
+`--root` times the matcher of `sphericalsfm_tpu_torch` from another
+checkout, for example a parent commit unpacked under `build/`, so that two
+versions can be timed in one call on one card. A checkout whose wrapper has
+one kernel for both dtypes times that kernel on both routes.
 
 `--dump DIR` writes each shape's float32 route outputs to DIR/<shape>.npz
 (m1, m2, idx). `--compare DIR_A DIR_B` needs no GPU: it prints, per shape
@@ -25,7 +27,6 @@ any differs or none is shared.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import subprocess
@@ -35,13 +36,6 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def load_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def parse_shape(shape: str):
@@ -82,8 +76,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("bench_two_nn: needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    smoke = load_smoke()
-    sys.path.insert(0, os.path.abspath(args.root))
+    sys.path.insert(0, HERE)
+    from sphericalsfm_tpu_torch.eval import kernel_checks as checks
+    root = os.path.abspath(args.root)
+    if root != HERE:  # the package again, from the other checkout
+        for name in [m for m in sys.modules if m.split(".")[0] == "sphericalsfm_tpu_torch"]:
+            del sys.modules[name]
+        sys.path.insert(0, root)
     from sphericalsfm_tpu_torch.device import resolve_device
     from sphericalsfm_tpu_torch.ops import matching_kernel as mk
 
@@ -92,7 +91,7 @@ def main() -> int:
         os.makedirs(args.dump, exist_ok=True)
     for seed, shape in enumerate(args.shapes.split(",")):
         pairs, K, drop = parse_shape(shape)
-        desc, pi, pj = smoke.descriptor_table(seed, pairs, K)
+        desc, pi, pj = checks.descriptor_table(seed, pairs, K)
         dev = torch.device("cuda")
         desc32 = torch.as_tensor(desc, device=dev)
         desc = desc32.to(torch.bfloat16)
@@ -103,18 +102,20 @@ def main() -> int:
         outs = {dtype: mk.two_nearest_neighbors(table, valid, pi, pj, dtype)
                 for dtype, table in tables.items()}
         errs = dict(bf16_max_abs_err=None, f32_max_abs_err=None)
-        for dtype, atol, gap in ([] if args.no_check else smoke.TOLERANCES):
+        for dtype in ([] if args.no_check else checks.MATCH_TOL):
             ref = mk.two_nn_reference(tables[dtype], valid, pi, pj, dtype)
+            check = checks.plain_check(outs[dtype], ref, valid[pj], dtype)
+            if not check["ok"]:
+                raise AssertionError(f"kernel != plain version on {shape} {dtype}: {check}")
             key = "bf16_max_abs_err" if dtype == torch.bfloat16 else "f32_max_abs_err"
-            errs[key] = smoke.compare_two_nn(f"{shape} {dtype}", outs[dtype], ref, valid[pj],
-                                             atol, gap)
+            errs[key] = check["max_abs_err"]
         if args.dump:
             np.savez(os.path.join(args.dump, f"{shape.replace(':', '_')}.npz"),
                      **{k: x.cpu().numpy() for k, x in zip(("m1", "m2", "idx"),
                                                            outs[torch.float32])})
         del outs
-        t = smoke.time_kernel(mk.two_nearest_neighbors, mk.two_nn_reference, (desc, valid, pi, pj))
-        print(json.dumps(dict(root=os.path.relpath(os.path.abspath(args.root), HERE), shape=shape,
+        t = checks.time_kernel(mk.two_nearest_neighbors, mk.two_nn_reference, (desc, valid, pi, pj))
+        print(json.dumps(dict(root=os.path.relpath(root, HERE), shape=shape,
                               **errs, **t)), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)

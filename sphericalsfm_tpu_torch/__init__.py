@@ -5,9 +5,10 @@ to it) on one NVIDIA H100. The package mirrors the layout and public names
 of `sphericalsfm_tpu` (geometry/, ops/, solvers/, ransac/, optim/,
 pipeline/, io/, eval/) so each function's counterpart is found by path.
 
-Plain tensor code is PyTorch; the one hand-written kernel is the streaming
-two-nearest-neighbour descriptor matcher (`csrc/two_nn.cu`, bound by
-`ops/matching_kernel.py`). `device.py` holds the device and dtype policy.
+Plain tensor code is PyTorch; the hand-written CUDA kernels (`csrc/`: the
+two-nearest-neighbour matcher in bf16 and float32, RANSAC's round and its
+final polish) share one launch path, `ops/cuda_libs.py`. `device.py` holds
+the device and dtype policy.
 
 The package imports torch, numpy and the standard library only — never jax
 and never `sphericalsfm_tpu`.

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .kernel_checks import MATCH_TOL, device_ms, plain_check, sync
 
 PAIRS = 64                 # RANSAC pairs
 CORR = 256                 # correspondences per pair
@@ -64,10 +65,6 @@ BA_SCALE_SOLVE = dict(solve_dtype_name="float32", pcg_rtol=1e-2, pcg_iters=25, f
 BA_SCALE_ITERS = 10
 DETECT = dict(frames=8, small=2, height=480, width=640, keypoints=1024, octaves=4)
 MATCH = dict(pairs=16, timed_pairs=8, K=4096, D=128, ratio=0.75, seed=1)
-# each kernel against its plain version (chip_smoke.py's TOLERANCES):
-# (distance tolerance, index gap): identical indices where the plain
-# version's m2 − m1 > gap
-MATCH_TOL = {torch.bfloat16: (1e-4, 2e-4), torch.float32: (1e-5, 1e-5)}
 REPS = 3
 
 # --quick: small sizes for a CPU run of every row (the BA bench scene and
@@ -88,47 +85,20 @@ JAX_TARGETS = dict(median_rot_err_deg=0.011, static_median_rot_err_deg=0.0109,
 # timing and device
 
 
-def _sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-
-
 def timed(fn, device, reps: int = REPS, warmup: int = 1):
     """fn's output and the median host seconds of `reps` warm calls, each
     ending in a device synchronize."""
     out = None
     for _ in range(warmup):
         out = fn()
-    _sync(device)
+    sync(device)
     runs = []
     for _ in range(reps):
         t0 = time.perf_counter()
         out = fn()
-        _sync(device)
+        sync(device)
         runs.append(time.perf_counter() - t0)
     return out, statistics.median(runs)
-
-
-def device_ms(fn, device, reps: int = 20, warmup: int = 3) -> float:
-    """Milliseconds per call of work queued back to back: on CUDA by events
-    around `reps` calls queued while the card sleeps (host overhead between
-    calls is not timed), on the CPU by the host clock."""
-    for _ in range(warmup):
-        fn()
-    _sync(device)
-    if torch.device(device).type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return 1e3 * (time.perf_counter() - t0) / reps
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def device_name(device) -> str:
@@ -220,13 +190,13 @@ def ransac_engines(prob):
 def _pairs_per_s(run, device, pairs, reps, outer):
     """The median over `outer` loops of `reps` synchronized calls of pairs/s."""
     out = run()
-    _sync(device)
+    sync(device)
     rates = []
     for _ in range(outer):
         t0 = time.perf_counter()
         for _ in range(reps):
             out = run()
-        _sync(device)
+        sync(device)
         rates.append(pairs * reps / (time.perf_counter() - t0))
     return out, statistics.median(rates)
 
@@ -571,23 +541,6 @@ def ratio_test_identity(out_a, out_b):
     a, b = ratio_matches(*out_a), ratio_matches(*out_b)
     keep = (a >= 0) | (b >= 0)
     return (float((a[keep] == b[keep]).mean()) if keep.any() else 1.0), int(keep.sum())
-
-
-def plain_check(got, ref, qvalid, dtype):
-    """A two-NN kernel's (m1, m2, idx) against its plain version at
-    MATCH_TOL[dtype]: the largest distance error on valid queries, whether
-    the indices are equal wherever the plain version separates m1 from m2
-    by more than the index gap, whether every invalid query is +inf, and
-    `ok` when all three hold."""
-    atol, gap = MATCH_TOL[dtype]
-    (m1, m2, nn), (r1, r2, rn) = got, ref
-    err = max(float((m1[qvalid] - r1[qvalid]).abs().max()),
-              float((m2[qvalid] - r2[qvalid]).abs().max()))
-    sep = qvalid & (r2 - r1 > gap)
-    same_idx = bool(torch.equal(nn[sep], rn[sep]))
-    inv_inf = bool(torch.isinf(m1[~qvalid]).all() and torch.isinf(m2[~qvalid]).all())
-    return dict(max_abs_err=err, indices_equal=same_idx, invalid_inf=inv_inf,
-                ok=err <= atol and same_idx and inv_inf)
 
 
 def run_matcher(device, quick: bool = False):

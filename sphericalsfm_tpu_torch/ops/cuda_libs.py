@@ -8,6 +8,11 @@ parallel nvcc runs, and loads every library: so whichever wrapper binds
 first (a benchmark's set-up warms the matcher) pays the only build, and
 later wrappers only look their entry point up. Only a machine with a card
 and nvcc builds; the CPU paths never get here.
+
+`Kernel` is every wrapper's one launch path: it binds each C entry once,
+launches it on the current stream of the tensors' device and raises on a
+CUDA error; `Kernel.check` holds a launch's tensors to what the kernel
+takes.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -82,3 +89,48 @@ def bind(source: str, entry: str, argtypes: list):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+class Kernel:
+    """One hand-written kernel's C entry points, {key: (source under csrc/,
+    entry, argument types)}, keyed by dtype or route. Each entry returns a
+    CUDA error code and takes the stream last."""
+
+    def __init__(self, name: str, entries: dict):
+        self.name = name
+        self.entries = entries
+        self._fns: dict = {}
+
+    def launch(self, key, device, *args) -> None:
+        """Launch entry `key` with `args` on the current stream of `device`;
+        a nonzero error code raises RuntimeError."""
+        fn = self._fns.get(key)
+        if fn is None:
+            fn = self._fns[key] = bind(*self.entries[key])
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: cudaError {err}")
+
+    def check(self, dtype, tensors: dict, rows) -> None:
+        """ValueError unless the kernel takes `dtype` (a key of its
+        entries), every tensor of `tensors` ({name: (tensor, shape, dtype)})
+        is on the first one's device with its shape and dtype, every one is
+        contiguous, every size of `rows` (what the kernel indexes with
+        int32) is below 2**31, and the device is CUDA."""
+        if dtype not in self.entries:
+            takes = " or ".join(sorted(str(k).removeprefix("torch.") for k in self.entries))
+            raise ValueError(f"{self.name} takes {takes}, got {dtype}")
+        first, (t0, _, _) = next(iter(tensors.items()))
+        for name, (t, shape, want) in tensors.items():
+            if t.device != t0.device:
+                raise ValueError(f"{name} is on {t.device}, {first} on {t0.device}")
+            if tuple(t.shape) != shape or t.dtype != want:
+                raise ValueError(f"{name} must be {shape} {want}, got {tuple(t.shape)} {t.dtype}")
+        for name, (t, _, _) in tensors.items():
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        if any(n >= 2 ** 31 for n in rows):
+            raise ValueError(f"{self.name} indexes with int32: sizes {tuple(rows)} reach 2**31")
+        if t0.device.type != "cuda":
+            raise ValueError(f"{self.name} takes CUDA tensors, got {t0.device}")

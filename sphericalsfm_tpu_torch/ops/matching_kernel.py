@@ -29,28 +29,17 @@ import ctypes
 
 import torch
 
-from .cuda_libs import bind
+from .cuda_libs import Kernel
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]
 # route: (source under csrc/, C entry point, its argument types)
-_KERNELS = {
-    "wgmma_bf16": ("two_nn_wgmma.cu", "two_nn_wgmma_launch",
-                   [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
-    "fma_f32": ("two_nn.cu", "two_nn_f32_launch",
-                [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
-}
+_KERNEL = Kernel("two_nn", {"wgmma_bf16": ("two_nn_wgmma.cu", "two_nn_wgmma_launch", _ARGS),
+                            "fma_f32": ("two_nn.cu", "two_nn_f32_launch", _ARGS)})
 _ROUTE = {torch.bfloat16: "wgmma_bf16", torch.float32: "fma_f32"}
 _BF16_MAX_PAIRS = 65535        # the bf16 kernel's grid: pairs on gridDim.y
 _F32_MAX_BLOCKS = 2 ** 31 - 1  # the f32 kernel's grid: pairs × query tiles on gridDim.x
-
-_fns: dict = {}
-
-
-def _load(route: str):
-    if route not in _fns:
-        _fns[route] = bind(*_KERNELS[route])
-    return _fns[route]
 
 
 def launch_slices(route: str, P: int, K: int) -> list:
@@ -127,19 +116,16 @@ def two_nearest_neighbors(desc: torch.Tensor, valid: torch.Tensor,
     if P == 0:
         return m1, m2, idx
     route = _ROUTE[compute_dtype]
-    fn = _load(route)
     if d.data_ptr() % 16:  # TMA reads the table from a 16-byte aligned address
         d = d.clone()
-    stream = torch.cuda.current_stream(desc.device).cuda_stream
     for s, e in launch_slices(route, P, K):
-        err = fn(d.data_ptr(), F, v.data_ptr(), pi[s:e].data_ptr(), pj[s:e].data_ptr(), e - s,
-                 K, D, m1[s:e].data_ptr(), m2[s:e].data_ptr(), idx[s:e].data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"two_nn {route} kernel launch failed: cudaError {err}")
+        _KERNEL.launch(route, desc.device, d.data_ptr(), F, v.data_ptr(), pi[s:e].data_ptr(),
+                       pj[s:e].data_ptr(), e - s, K, D, m1[s:e].data_ptr(), m2[s:e].data_ptr(),
+                       idx[s:e].data_ptr())
         two_nearest_neighbors.launches += 1
         two_nearest_neighbors.route_launches[route] += 1
     return m1, m2, idx
 
 
 two_nearest_neighbors.launches = 0
-two_nearest_neighbors.route_launches = dict.fromkeys(_KERNELS, 0)
+two_nearest_neighbors.route_launches = dict.fromkeys(_KERNEL.entries, 0)

@@ -70,16 +70,7 @@ def estimate_pairwise(
     grows with the mesh as in JAX and each chunk's pairs split over its
     shards after the chunk's draws, as `parallel.sharded_pairwise_ransac`
     splits them, so the draws are the single-device run's."""
-    P, Nmax = idx0.shape
-    if P == 0:
-        return PairwiseResult(
-            r=np.zeros((0, 3)), E=np.zeros((0, 3, 3)),
-            num_inliers=np.zeros(0, np.int64),
-            inlier_mask=np.zeros((0, Nmax), bool), keep=np.zeros(0, bool),
-            loop_closure_count=0, counts=dict(chunks=0))
     dev = torch.device(device) if device is not None else gen.device
-    u, v, sq_thresh = _rays_and_threshold(points, pair_i, pair_j, idx0, idx1, intrinsics,
-                                          inlier_threshold_px)
     max_rounds = max(1, -(-num_hypotheses // round_size))
     devices = None
     if mesh is not None:
@@ -87,25 +78,47 @@ def estimate_pairwise(
         chunk_size = -(-chunk_size // nd) * nd * max(1, nd // 8)
         devices = mesh.devices
 
-    outs = []
+    def run(u, v, mask, sq_thresh):
+        if adaptive:
+            return spherical_ransac_adaptive(gen, u, v, mask, sq_thresh, round_size=round_size,
+                                             max_rounds=max_rounds, confidence=confidence,
+                                             inward=inward, devices=devices)
+        return spherical_ransac(gen, u, v, mask, sq_thresh, num_hypotheses=num_hypotheses,
+                                inward=inward, devices=devices)
+
+    return _estimate("adaptive" if adaptive else "static", run, points, pair_i, pair_j, idx0,
+                     idx1, match_mask, intrinsics, inlier_threshold_px, min_num_inliers,
+                     chunk_size, dev)
+
+
+def _estimate(engine, run, points, pair_i, pair_j, idx0, idx1, match_mask, intrinsics,
+              inlier_threshold_px, min_num_inliers, chunk_size, dev) -> PairwiseResult:
+    """Both entry points' sweep: the rays and threshold, then each chunk of
+    pairs uploaded to `dev` and estimated by `run(u, v, mask, sq_thresh)`
+    on the `engine` ("adaptive", "static" or "five_point"), then the
+    results gathered; the adaptive engine's record counts the round
+    kernel's launches."""
+    P, Nmax = idx0.shape
+    if P == 0:
+        return PairwiseResult(
+            r=np.zeros((0, 3)), E=np.zeros((0, 3, 3)),
+            num_inliers=np.zeros(0, np.int64),
+            inlier_mask=np.zeros((0, Nmax), bool), keep=np.zeros(0, bool),
+            loop_closure_count=0, counts=dict(chunks=0))
+    u, v, sq_thresh = _rays_and_threshold(points, pair_i, pair_j, idx0, idx1, intrinsics,
+                                          inlier_threshold_px)
     launches = spherical_round.launches
+    outs = []
     for s in range(0, P, chunk_size):
         e = min(s + chunk_size, P)
         with span("call:ransac.chunk"):
             with span("stage:pairwise.upload"):
-                args = (gen, torch.as_tensor(u[s:e], dtype=GEOM_DTYPE, device=dev),
+                args = (torch.as_tensor(u[s:e], dtype=GEOM_DTYPE, device=dev),
                         torch.as_tensor(v[s:e], dtype=GEOM_DTYPE, device=dev),
-                        torch.as_tensor(match_mask[s:e], device=dev), sq_thresh)
-            if adaptive:
-                outs.append(spherical_ransac_adaptive(*args, round_size=round_size,
-                                                      max_rounds=max_rounds,
-                                                      confidence=confidence, inward=inward,
-                                                      devices=devices))
-            else:
-                outs.append(spherical_ransac(*args, num_hypotheses=num_hypotheses,
-                                             inward=inward, devices=devices))
-    res = _gather_results(outs, pair_i, pair_j, match_mask, min_num_inliers)
-    if adaptive:
+                        torch.as_tensor(match_mask[s:e], device=dev))
+            outs.append(run(*args, sq_thresh))
+    res = _gather_results(engine, outs, pair_i, pair_j, match_mask, min_num_inliers)
+    if engine == "adaptive":
         res.counts["round_launches"] = spherical_round.launches - launches
     return res
 
@@ -127,16 +140,17 @@ def _rays_and_threshold(points, pair_i, pair_j, idx0, idx1, intrinsics, inlier_t
                 (inlier_threshold_px / focal) ** 2)
 
 
-def _gather_results(outs, pair_i, pair_j, match_mask, min_num_inliers) -> PairwiseResult:
-    """Per-chunk RANSAC results → host PairwiseResult with the keep test
-    (more inliers than the minimum, and at least that many matches), and
-    the counts: a chunk runs rounds while any of its pairs runs, and a pair
-    that stops never restarts, so a chunk ran as many rounds as its
-    longest-running pair."""
+def _gather_results(engine, outs, pair_i, pair_j, match_mask,
+                    min_num_inliers) -> PairwiseResult:
+    """Per-chunk RANSAC results of the `engine` → host PairwiseResult with
+    the keep test (more inliers than the minimum, and at least that many
+    matches), and the counts: a chunk runs rounds while any of its pairs
+    runs, and a pair that stops never restarts, so a chunk ran as many
+    rounds as its longest-running pair."""
     with span("stage:pairwise.gather"):
         r = torch.cat([o.r for o in outs]).cpu().numpy()
         E = torch.cat([o.E for o in outs]).cpu().numpy()
-        spherical = hasattr(outs[0], "rounds")        # the five-point engine runs no rounds
+        spherical = engine != "five_point"     # the spherical engines polish and run rounds
         per_pair = torch.cat([torch.stack([o.num_inliers, o.rounds, o.polish_iters,
                                            o.polish_accepted.to(torch.int64)]) if spherical
                               else o.num_inliers[None] for o in outs], dim=1).cpu().numpy()
@@ -149,7 +163,7 @@ def _gather_results(outs, pair_i, pair_j, match_mask, min_num_inliers) -> Pairwi
         if spherical:
             counts.update(polish_iters=float(per_pair[2].mean()),
                           polish_accept_pct=100.0 * float(per_pair[3].mean()))
-        if spherical and per_pair[1].any():         # the adaptive engine
+        if engine == "adaptive":
             sizes = [o.r.shape[0] for o in outs]
             chunk_rounds = [int(c.max()) for c in np.split(per_pair[1], np.cumsum(sizes)[:-1])]
             computed = sum(n * b for n, b in zip(chunk_rounds, sizes))
@@ -167,18 +181,13 @@ def estimate_pairwise_five_point(
 ) -> PairwiseResult:
     """General (5-point) relative poses for every candidate pair, in chunks
     of `chunk_size` pairs on `device` (default: the generator's device)."""
+    def run(u, v, mask, sq_thresh):
+        return general_essential_ransac(gen, u, v, mask, sq_thresh,
+                                        num_hypotheses=num_hypotheses)
+
     dev = torch.device(device) if device is not None else gen.device
-    u, v, sq_thresh = _rays_and_threshold(points, pair_i, pair_j, idx0, idx1, intrinsics,
-                                          inlier_threshold_px)
-    outs = []
-    for s in range(0, len(pair_i), chunk_size):
-        e = s + chunk_size
-        outs.append(general_essential_ransac(
-            gen, torch.as_tensor(u[s:e], dtype=GEOM_DTYPE, device=dev),
-            torch.as_tensor(v[s:e], dtype=GEOM_DTYPE, device=dev),
-            torch.as_tensor(match_mask[s:e], device=dev), sq_thresh,
-            num_hypotheses=num_hypotheses))
-    return _gather_results(outs, pair_i, pair_j, match_mask, min_num_inliers)
+    return _estimate("five_point", run, points, pair_i, pair_j, idx0, idx1, match_mask,
+                     intrinsics, inlier_threshold_px, min_num_inliers, chunk_size, dev)
 
 
 def pad_match_table(matches_per_pair, max_matches=None):

@@ -16,14 +16,13 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.cuda_libs import bind
+from ..ops.cuda_libs import Kernel
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _I, _I, _P, _P, _P, _P, _P, _P, _P]
-_ENTRY = {torch.float64: "spherical_polish_f64_launch",
-          torch.float32: "spherical_polish_f32_launch"}
-
-_fns: dict = {}
+_KERNEL = Kernel("spherical_polish", {
+    torch.float64: ("spherical_polish.cu", "spherical_polish_f64_launch", _ARGS),
+    torch.float32: ("spherical_polish.cu", "spherical_polish_f32_launch", _ARGS)})
 
 
 class PolishResult(NamedTuple):
@@ -37,27 +36,6 @@ class PolishResult(NamedTuple):
     accepted: torch.Tensor    # (B,) bool: the polished model scored strictly lower
 
 
-def _check(r0, u, v, mask, inliers, E, score):
-    dev, dtype = u.device, u.dtype
-    if dev.type != "cuda":
-        raise ValueError(f"spherical_polish takes CUDA tensors, got {dev}")
-    if dtype not in _ENTRY:
-        raise ValueError(f"spherical_polish takes float32 or float64, got {dtype}")
-    B, N = mask.shape
-    shapes = dict(r0=(r0, (B, 3), dtype), u=(u, (B, N, 3), dtype), v=(v, (B, N, 3), dtype),
-                  mask=(mask, (B, N), torch.bool), inliers=(inliers, (B, N), torch.bool),
-                  E=(E, (B, 3, 3), dtype), score=(score, (B,), dtype))
-    for name, (t, shape, want) in shapes.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, u on {dev}")
-        if tuple(t.shape) != shape or t.dtype != want:
-            raise ValueError(f"{name} must be {shape} {want}, got {tuple(t.shape)} {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if N >= 2 ** 31 // 3 or B >= 2 ** 31:
-        raise ValueError(f"spherical_polish takes fewer than 2**31 rows, got {B} x {N}")
-
-
 def spherical_polish(r0, u, v, mask, inliers, E, score, sq_thresh: float, inward: bool,
                      max_iters: int) -> PolishResult:
     """LM polish of each pair's rotation from r0 (B, 3) on the squared
@@ -66,8 +44,12 @@ def spherical_polish(r0, u, v, mask, inliers, E, score, sq_thresh: float, inward
     (B,): the polished model is kept where it scores strictly lower. Every
     tensor contiguous on one CUDA device; u, v (B, N, 3) float32 or
     float64 and r0, E, score of the same type."""
-    _check(r0, u, v, mask, inliers, E, score)
     B, N = mask.shape
+    dtype = u.dtype
+    _KERNEL.check(dtype, dict(
+        r0=(r0, (B, 3), dtype), u=(u, (B, N, 3), dtype), v=(v, (B, N, 3), dtype),
+        mask=(mask, (B, N), torch.bool), inliers=(inliers, (B, N), torch.bool),
+        E=(E, (B, 3, 3), dtype), score=(score, (B,), dtype)), rows=(B, 3 * N))
     r_out = torch.empty_like(r0)
     E_out = torch.empty_like(E)
     score_out = torch.empty_like(score)
@@ -75,18 +57,11 @@ def spherical_polish(r0, u, v, mask, inliers, E, score, sq_thresh: float, inward
     iters = torch.empty((B,), dtype=torch.int64, device=u.device)
     accepted = torch.empty((B,), dtype=torch.bool, device=u.device)
     if B:
-        if u.dtype not in _fns:
-            _fns[u.dtype] = bind("spherical_polish.cu", _ENTRY[u.dtype], _ARGS)
-        with torch.cuda.device(u.device):
-            stream = torch.cuda.current_stream(u.device).cuda_stream
-            err = _fns[u.dtype](r0.data_ptr(), u.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                                inliers.data_ptr(), E.data_ptr(), score.data_ptr(), B, N,
-                                float(sq_thresh), int(bool(inward)), int(max_iters),
-                                r_out.data_ptr(), E_out.data_ptr(), score_out.data_ptr(),
-                                inl_out.data_ptr(), iters.data_ptr(), accepted.data_ptr(),
-                                stream)
-        if err != 0:
-            raise RuntimeError(f"spherical_polish kernel launch failed: cudaError {err}")
+        _KERNEL.launch(dtype, u.device, r0.data_ptr(), u.data_ptr(), v.data_ptr(),
+                       mask.data_ptr(), inliers.data_ptr(), E.data_ptr(), score.data_ptr(), B, N,
+                       float(sq_thresh), int(bool(inward)), int(max_iters), r_out.data_ptr(),
+                       E_out.data_ptr(), score_out.data_ptr(), inl_out.data_ptr(),
+                       iters.data_ptr(), accepted.data_ptr())
         spherical_polish.launches += 1
     return PolishResult(r_out, E_out, score_out, inl_out, iters, accepted)
 

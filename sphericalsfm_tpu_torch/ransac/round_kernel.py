@@ -18,15 +18,15 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.cuda_libs import bind
+from ..ops.cuda_libs import Kernel
 from ..solvers.spherical import _VAND_INV_T, _XYZ_NODES
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _ARGS = [_P] * 9 + [_I, _I, _I, _D] + [_P] * 7
-_ENTRY = {torch.float64: "spherical_round_f64_launch",
-          torch.float32: "spherical_round_f32_launch"}
+_KERNEL = Kernel("spherical_round", {
+    torch.float64: ("spherical_round.cu", "spherical_round_f64_launch", _ARGS),
+    torch.float32: ("spherical_round.cu", "spherical_round_f32_launch", _ARGS)})
 
-_fns: dict = {}
 _consts: dict = {}
 
 
@@ -45,29 +45,6 @@ class RoundCandidates(NamedTuple):
     E: torch.Tensor      # (B, 4R, 3, 3), zero where not valid
     valid: torch.Tensor  # (B, 4R)
     score: torch.Tensor  # (B, 4R) MSAC score, +inf where not valid
-
-
-def _check(triples, u, v, mask, E, score, inliers, active):
-    dev, dtype = u.device, u.dtype
-    if dtype not in _ENTRY:
-        raise ValueError(f"spherical_round takes float32 or float64, got {dtype}")
-    B, N = mask.shape
-    R = triples.shape[1] if triples.dim() == 3 else -1
-    shapes = dict(triples=(triples, (B, R, 3), torch.int64), u=(u, (B, N, 3), dtype),
-                  v=(v, (B, N, 3), dtype), mask=(mask, (B, N), torch.bool),
-                  E=(E, (B, 3, 3), dtype), score=(score, (B,), dtype),
-                  inliers=(inliers, (B, N), torch.bool), active=(active, (B,), torch.bool))
-    for name, (t, shape, want) in shapes.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, u on {dev}")
-        if tuple(t.shape) != shape or t.dtype != want:
-            raise ValueError(f"{name} must be {shape} {want}, got {tuple(t.shape)} {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if N >= 2 ** 31 // 3 or B >= 2 ** 31 or 4 * R >= 2 ** 31:
-        raise ValueError(f"spherical_round takes fewer than 2**31 rows, got {B} x {R} x {N}")
-    if dev.type != "cuda":
-        raise ValueError(f"spherical_round takes CUDA tensors, got {dev}")
 
 
 def _constants(dtype, device) -> torch.Tensor:
@@ -91,9 +68,14 @@ def spherical_round(triples, u, v, mask, E, score, inliers, active, sq_thresh: f
     whose `active` (B,) is set. Every tensor contiguous on one CUDA device;
     u, v (B, N, 3) float32 or float64, E and score of the same type.
     Returns a RoundResult, and with `candidates` also the RoundCandidates."""
-    _check(triples, u, v, mask, E, score, inliers, active)
     B, N = mask.shape
-    R = triples.shape[1]
+    R = triples.shape[1] if triples.dim() == 3 else -1
+    dtype = u.dtype
+    _KERNEL.check(dtype, dict(
+        triples=(triples, (B, R, 3), torch.int64), u=(u, (B, N, 3), dtype),
+        v=(v, (B, N, 3), dtype), mask=(mask, (B, N), torch.bool), E=(E, (B, 3, 3), dtype),
+        score=(score, (B,), dtype), inliers=(inliers, (B, N), torch.bool),
+        active=(active, (B,), torch.bool)), rows=(B, 3 * N, 4 * R))
     E_out = torch.empty_like(E)
     score_out = torch.empty_like(score)
     inl_out = torch.empty_like(inliers)
@@ -102,21 +84,13 @@ def spherical_round(triples, u, v, mask, E, score, inliers, active, sq_thresh: f
                             torch.full((B, 4 * R), float("inf"), dtype=u.dtype, device=u.device))
             if candidates else None)
     if B:
-        if u.dtype not in _fns:
-            _fns[u.dtype] = bind("spherical_round.cu", _ENTRY[u.dtype], _ARGS)
-        consts = _constants(u.dtype, u.device)
-        with torch.cuda.device(u.device):
-            stream = torch.cuda.current_stream(u.device).cuda_stream
-            err = _fns[u.dtype](triples.data_ptr(), u.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                                consts.data_ptr(), E.data_ptr(), score.data_ptr(),
-                                inliers.data_ptr(), active.data_ptr(), B, R, N,
-                                float(sq_thresh), E_out.data_ptr(), score_out.data_ptr(),
-                                inl_out.data_ptr(),
-                                *((cand.E.data_ptr(), cand.valid.data_ptr(), cand.score.data_ptr())
-                                  if candidates else (None, None, None)),
-                                stream)
-        if err != 0:
-            raise RuntimeError(f"spherical_round kernel launch failed: cudaError {err}")
+        consts = _constants(dtype, u.device)
+        _KERNEL.launch(dtype, u.device, triples.data_ptr(), u.data_ptr(), v.data_ptr(),
+                       mask.data_ptr(), consts.data_ptr(), E.data_ptr(), score.data_ptr(),
+                       inliers.data_ptr(), active.data_ptr(), B, R, N, float(sq_thresh),
+                       E_out.data_ptr(), score_out.data_ptr(), inl_out.data_ptr(),
+                       *((cand.E.data_ptr(), cand.valid.data_ptr(), cand.score.data_ptr())
+                         if candidates else (None, None, None)))
         spherical_round.launches += 1
     out = RoundResult(E_out, score_out, inl_out)
     return (out, cand) if candidates else out

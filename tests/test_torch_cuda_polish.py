@@ -23,31 +23,20 @@ What must agree, and why:
 * The scores (1e-9 relative) and models (1e-9) of the pairs both paths
   kept with equal iterations; the input model and score untouched where
   the kernel kept the RANSAC best.
-These float64 checks are `chip_smoke.polish_agreement`, the smoke's.
+These float64 checks are `kernel_checks.polish_agreement`, the smoke's.
 * In float32 the rounding is 1e-7 and the LM's last steps are rounding
   driven, so there the kernel is held to the plain path's scores and
   rotations within the float32 noise (see the test).
 """
 
-import importlib.util
-import os
-
 import pytest
 import torch
 
+from sphericalsfm_tpu_torch.eval import kernel_checks as checks
 from sphericalsfm_tpu_torch.ransac import spherical as sph
 from sphericalsfm_tpu_torch.ransac.polish_kernel import PolishResult, spherical_polish
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ITERS = 25
-
-
-def _smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 @pytest.fixture
@@ -71,15 +60,15 @@ def _rel(a, b):
 
 
 def _check_float64(args, k, p, inward, min_equal=0.99):
-    """chip_smoke.polish_agreement's checks, the smoke's polish phase's."""
-    info, failures = _smoke().polish_agreement(args, k, p, inward, min_equal)
+    """kernel_checks.polish_agreement's checks, the smoke's polish phase's."""
+    info, failures = checks.polish_agreement(args, k, p, inward, min_equal)
     assert not failures, (failures, info)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("inward", [False, True])
 def test_polish_kernel_matches_plain_path_at_the_main_chunk(cuda, inward):
-    args = _smoke().polish_inputs(128, 1024, inward=inward, device=cuda)
+    args = checks.polish_inputs(128, 1024, inward=inward, device=cuda)
     k, p = _both(args, inward)
     _check_float64(args, k, p, inward)
     assert 0 < k.accepted.double().mean()
@@ -88,7 +77,7 @@ def test_polish_kernel_matches_plain_path_at_the_main_chunk(cuda, inward):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 104, 128, 200])
 def test_polish_kernel_chunk_edges(cuda, B):
-    args = _smoke().polish_inputs(B, 1024, seed=B, device=cuda)
+    args = checks.polish_inputs(B, 1024, seed=B, device=cuda)
     k, p = _both(args)
     _check_float64(args, k, p, False, min_equal=0.99 if B >= 100 else 1.0)
 
@@ -101,10 +90,9 @@ def test_polish_kernel_degenerate_rows(cuda, dtype, inward):
     a 1e-7° rotation (its translation nearly 0, so only the rotation's axis
     is observed), and pair 6, an 8.6° problem, starts at r = (1e-9, 0, 0),
     in so3_exp's Taylor branch (θ² < 1e-16); the rest are ordinary."""
-    smoke = _smoke()
-    args = list(smoke.polish_inputs(8, 256, dtype=dtype, inward=inward, seed=5, device=cuda))
-    tiny = smoke.polish_inputs(8, 256, dtype=dtype, inward=inward, seed=6, device=cuda,
-                               rotation_deg=1e-7, outliers=(0.0, 0.0))
+    args = list(checks.polish_inputs(8, 256, dtype=dtype, inward=inward, seed=5, device=cuda))
+    tiny = checks.polish_inputs(8, 256, dtype=dtype, inward=inward, seed=6, device=cuda,
+                                rotation_deg=1e-7, outliers=(0.0, 0.0))
     r0, u, v, mask, inliers, E, score, sq = args
     inliers[0] = False
     inliers[0, torch.nonzero(mask[0])[:2, 0]] = True
@@ -145,7 +133,7 @@ def test_polish_kernel_float32_within_its_rounding(cuda):
     not minimize and which move to first order with the rotation, within
     1e-3 relative or a thousandth of one capped match (a pair whose few
     valid matches all fit exactly scores ~1e-15 in float32, rounding alone)."""
-    args = _smoke().polish_inputs(128, 1024, dtype=torch.float32, device=cuda)
+    args = checks.polish_inputs(128, 1024, dtype=torch.float32, device=cuda)
     sq = args[-1]
     k, p = _both(args)
     gap = torch.linalg.norm(k.r - p.r, dim=-1)
@@ -160,7 +148,7 @@ def test_polish_kernel_rows_past_shared_memory(cuda):
     """5000 matches in float64 (250 KB a pair) are more than an SM's L1
     and shared memory hold together: the rows stream from L2 on every
     pass."""
-    args = _smoke().polish_inputs(4, 5000, seed=9, device=cuda)
+    args = checks.polish_inputs(4, 5000, seed=9, device=cuda)
     k, p = _both(args)
     _check_float64(args, k, p, False, min_equal=1.0)
 
@@ -168,7 +156,7 @@ def test_polish_kernel_rows_past_shared_memory(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_polish_kernel_repeats_bit_for_bit(cuda, dtype):
-    args = _smoke().polish_inputs(64, 1024, dtype=dtype, seed=3, device=cuda)
+    args = checks.polish_inputs(64, 1024, dtype=dtype, seed=3, device=cuda)
     a = spherical_polish(*args, False, ITERS)
     b = spherical_polish(*args, False, ITERS)
     for x, y in zip(a, b):
@@ -177,7 +165,7 @@ def test_polish_kernel_repeats_bit_for_bit(cuda, dtype):
 
 @pytest.mark.cuda
 def test_polish_wrapper_refuses_what_the_kernel_does_not_take(cuda):
-    r0, u, v, mask, inliers, E, score, sq = _smoke().polish_inputs(4, 64, device=cuda)
+    r0, u, v, mask, inliers, E, score, sq = checks.polish_inputs(4, 64, device=cuda)
     ok = (r0, u, v, mask, inliers, E, score)
     with pytest.raises(ValueError, match="contiguous"):
         spherical_polish(r0, u.transpose(0, 1).contiguous().transpose(0, 1), *ok[2:], sq,
@@ -195,7 +183,7 @@ def test_polish_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 def test_sharded_static_engine_launches_once_per_part(cuda):
     """Two parts on the card (a mesh's rows split in two) launch the kernel
     twice, each on its part's rows, and give the one-part result."""
-    r0, u, v, mask, *_ = _smoke().polish_inputs(16, 256, seed=4, device=cuda)
+    r0, u, v, mask, *_ = checks.polish_inputs(16, 256, seed=4, device=cuda)
     gen = torch.Generator(device=cuda)
     before = spherical_polish.launches
     one = sph.spherical_ransac(gen.manual_seed(2), u, v, mask, (2.0 / 600) ** 2,

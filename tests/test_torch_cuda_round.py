@@ -9,12 +9,12 @@ without the repository's conftest:
 
     python -m pytest tests/test_torch_cuda_round.py -m cuda --noconftest -q
 
-What must agree, and why (`chip_smoke.round_agreement`, the smoke's):
+What must agree, and why (`kernel_checks.round_agreement`, the smoke's):
 * Each triple with as many valid candidates, and the plain candidates
   matched to the nearest kernel candidate of their triple (rounding may
   hand the roots to the slots in another order): at the 50th to 99.9th
   percentiles no farther than 10× what the plain solve itself moves when
-  its rays move by one rounding (`chip_smoke.round_sensitivity`). The
+  its rays move by one rounding (`kernel_checks.round_sensitivity`). The
   solve forms normal equations whose condition number reaches 1e18 on
   some triples, has near-double roots, and takes spurious candidates from
   complex pairs' real parts: the plain solve moves by up to ~1 there on
@@ -37,25 +37,14 @@ What must agree, and why (`chip_smoke.round_agreement`, the smoke's):
   and every inactive pair, left bit for bit as it was.
 """
 
-import importlib.util
-import os
-
 import pytest
 import torch
 
+from sphericalsfm_tpu_torch.eval import kernel_checks as checks
 from sphericalsfm_tpu_torch.ransac import spherical as sph
 from sphericalsfm_tpu_torch.ransac.round_kernel import spherical_round
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SQ = (2.0 / 600) ** 2
-
-
-def _smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 @pytest.fixture
@@ -77,17 +66,16 @@ def _both(args):
 
 
 def _check(args):
-    smoke = _smoke()
     k, kc, p = _both(args)
-    pc = smoke.round_plain_candidates(args)
-    info, failures = smoke.round_agreement(args, k, kc, p, pc, smoke.round_sensitivity(args))
+    pc = checks.round_plain_candidates(args)
+    info, failures = checks.round_agreement(args, k, kc, p, pc, checks.round_sensitivity(args))
     assert not failures, (failures, info)
     return k, p, info
 
 
 @pytest.mark.cuda
 def test_round_kernel_matches_plain_round_at_the_main_chunk(cuda):
-    args = _smoke().round_inputs(128, 128, 1024, device=cuda)
+    args = checks.round_inputs(128, 128, 1024, device=cuda)
     k, p, info = _check(args)
     assert info["kept"] > 10 and info["active"] < 128
 
@@ -95,7 +83,7 @@ def test_round_kernel_matches_plain_round_at_the_main_chunk(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 127, 129])
 def test_round_kernel_chunk_edges(cuda, B):
-    args = _smoke().round_inputs(B, 128, 1024, seed=B, device=cuda, active_share=0.9)
+    args = checks.round_inputs(B, 128, 1024, seed=B, device=cuda, active_share=0.9)
     _check(args)
 
 
@@ -104,14 +92,14 @@ def test_round_kernel_chunk_edges(cuda, B):
 def test_round_kernel_triples_past_one_tile(cuda, R):
     """R triples in tiles of 128: a partial tile, and three tiles whose
     best is taken in order."""
-    _check(_smoke().round_inputs(16, R, 512, seed=R, device=cuda, active_share=1.0))
+    _check(checks.round_inputs(16, R, 512, seed=R, device=cuda, active_share=1.0))
 
 
 @pytest.mark.cuda
 def test_round_kernel_rows_past_shared_memory(cuda):
     """5000 matches in float64 (240 KB a pair) do not fit the staged rows:
     they are read from device memory, the mask tested per row."""
-    _check(_smoke().round_inputs(6, 128, 5000, seed=9, device=cuda, active_share=1.0))
+    _check(checks.round_inputs(6, 128, 5000, seed=9, device=cuda, active_share=1.0))
 
 
 @pytest.mark.cuda
@@ -125,8 +113,7 @@ def test_round_kernel_degenerate_triples(cuda):
     these are held to the plain round in full."""
     from sphericalsfm_tpu_torch.ransac.round_kernel import RoundCandidates, RoundResult
 
-    smoke = _smoke()
-    triples, u, v, mask, E, score, inliers, active, sq = smoke.round_inputs(
+    triples, u, v, mask, E, score, inliers, active, sq = checks.round_inputs(
         8, 64, 256, seed=11, device=cuda, active_share=1.0)
     first = torch.nonzero(mask[0])[:, 0]
     triples[0] = first[0]
@@ -156,10 +143,10 @@ def test_round_kernel_degenerate_triples(cuda):
     assert torch.equal(k.E[~kept], E[~kept]) and torch.equal(k.inliers[~kept], inliers[~kept])
     held = torch.arange(3, 8, device=cuda)
     sub = tuple(x[held] if torch.is_tensor(x) else x for x in args)
-    info, failures = smoke.round_agreement(
+    info, failures = checks.round_agreement(
         sub, RoundResult(*(x[held] for x in k)), RoundCandidates(*(x[held] for x in kc)),
-        sph._Part(*(x[held] for x in p)), smoke.round_plain_candidates(sub),
-        smoke.round_sensitivity(sub))
+        sph._Part(*(x[held] for x in p)), checks.round_plain_candidates(sub),
+        checks.round_sensitivity(sub))
     assert not failures, (failures, info)
 
 
@@ -173,8 +160,7 @@ def test_round_kernel_float32_within_its_rounding(cuda):
     of its own E within 1e-4 relative (a sum of up to 1024 float32 terms in
     another order) or a thousandth of a capped match, and the pairs it did
     not keep bit for bit."""
-    smoke = _smoke()
-    args = smoke.round_inputs(128, 128, 1024, dtype=torch.float32, device=cuda)
+    args = checks.round_inputs(128, 128, 1024, dtype=torch.float32, device=cuda)
     triples, u, v, mask, E, score, inliers, active, sq = args
     k, kc, p = _both(args)
     kept_k, kept_p = active & (k.score < score), active & (p.score < score)
@@ -193,7 +179,7 @@ def test_round_kernel_float32_within_its_rounding(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_round_kernel_repeats_bit_for_bit(cuda, dtype):
-    args = _smoke().round_inputs(64, 128, 1024, dtype=dtype, seed=3, device=cuda)
+    args = checks.round_inputs(64, 128, 1024, dtype=dtype, seed=3, device=cuda)
     a, ac = spherical_round(*args, candidates=True)
     b, bc = spherical_round(*args, candidates=True)
     for x, y in zip(a + ac, b + bc):
@@ -202,8 +188,8 @@ def test_round_kernel_repeats_bit_for_bit(cuda, dtype):
 
 def _chunk(cuda, B=128, N=1024, seed=0):
     """A pairwise chunk: random problems with 20–60% outliers."""
-    r = _smoke().round_inputs(B, 1, N, seed=seed, device=cuda, outliers=(0.2, 0.6),
-                              rotation_deg=10.0)
+    r = checks.round_inputs(B, 1, N, seed=seed, device=cuda, outliers=(0.2, 0.6),
+                            rotation_deg=10.0)
     return r[1], r[2], r[3]
 
 
@@ -257,7 +243,7 @@ def test_sharded_rounds_launch_once_a_part(cuda):
 
 @pytest.mark.cuda
 def test_round_wrapper_refuses_what_the_kernel_does_not_take(cuda):
-    args = list(_smoke().round_inputs(4, 8, 64, device=cuda))
+    args = list(checks.round_inputs(4, 8, 64, device=cuda))
     triples, u, v = args[:3]
     with pytest.raises(ValueError, match="contiguous"):
         spherical_round(triples, u.transpose(0, 1).contiguous().transpose(0, 1), *args[2:])

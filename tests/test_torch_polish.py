@@ -2,11 +2,11 @@
 iterations and accepted flags in both engines' results, the counts that
 `estimate_pairwise` makes of them, the dispatch by device (CPU tensors
 never reach the kernel; the kernel's wrapper refuses them), the one build
-of every CUDA source at the first bind, and the smoke's input generator
-and operation count of the polish kernel. The kernel itself is held to the
-plain path on the card by tests/test_torch_cuda_polish.py."""
+of every CUDA source at the first bind, and the polish kernel's input
+generator and operation count in `eval/kernel_checks.py`, the smoke's. The
+kernel itself is held to the plain path on the card by
+tests/test_torch_cuda_polish.py."""
 
-import importlib.util
 import os
 import types
 
@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from sphericalsfm_tpu_torch.eval import kernel_checks as checks
 from sphericalsfm_tpu_torch.eval.experiments import _contaminate
 from sphericalsfm_tpu_torch.eval.synthetic import make_circular_scene, make_random_problems
 from sphericalsfm_tpu_torch.geometry.essential import (
@@ -28,16 +29,7 @@ from sphericalsfm_tpu_torch.ransac.engine import msac_score
 from sphericalsfm_tpu_torch.ransac.polish_kernel import spherical_polish
 
 torch.set_num_threads(1)
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SQ = (2.0 / 600) ** 2
-
-
-def _smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _problems(B=8, N=128, seed=0, outliers=0.3):
@@ -198,26 +190,24 @@ def test_first_bind_builds_every_cuda_source_at_once(tmp_path, monkeypatch):
 def test_smoke_polish_inputs_and_operation_count():
     """The inputs the smoke and the card tests give the polish (here on
     the CPU), and the operation count behind the kernel's FP64 bound."""
-    smoke = _smoke()
-    r0, u, v, mask, inliers, E, score, sq = smoke.polish_inputs(6, 96, device="cpu")
+    r0, u, v, mask, inliers, E, score, sq = checks.polish_inputs(6, 96, device="cpu")
     assert r0.shape == (6, 3) and u.shape == v.shape == (6, 96, 3) and E.shape == (6, 3, 3)
     assert all(t.is_contiguous() for t in (r0, u, v, mask, inliers, E, score))
     assert inliers.any(-1).all() and (inliers.sum(-1) < 0.8 * 96).all()  # 30–70% outliers
     assert sq == SQ
-    flops = smoke.polish_flops(torch.tensor([15, 10]), 1024)
+    flops = checks.polish_flops(torch.tensor([15, 10]), 1024)
     assert flops == 1024 * (42 * (2 + 25) + 213 * 25 + 40 * 2)
 
 
 @pytest.mark.parametrize("fault", ["score", "kept_model", "inliers", "accepted", "rotation"])
 def test_smoke_polish_agreement_catches_a_wrong_polish(fault):
     """The smoke's polish phase holds the kernel to the plain path with
-    `polish_agreement`: the plain path against itself passes, and each
+    `kernel_checks.polish_agreement`: the plain path against itself passes, and each
     fault of a kernel's epilogue or LM (here applied to the plain path's
     own result on the CPU) fails it."""
-    smoke = _smoke()
-    args = smoke.polish_inputs(6, 96, device="cpu")
+    args = checks.polish_inputs(6, 96, device="cpu")
     p = sph._polish_plain(*args, False, 25)
-    info, failures = smoke.polish_agreement(args, p, p)
+    info, failures = checks.polish_agreement(args, p, p)
     assert failures == [] and info["kept_both"] > 0 and info["accepted_share"] < 1
     odd = torch.arange(96) % 2 == 1
     bad = {"score": p._replace(score=torch.where(p.accepted, p.score * 1.01, p.score)),
@@ -225,14 +215,13 @@ def test_smoke_polish_agreement_catches_a_wrong_polish(fault):
            "inliers": p._replace(inliers=p.inliers & ~odd),
            "accepted": p._replace(accepted=~p.accepted),
            "rotation": p._replace(r=p.r * (1 + 1e-6))}[fault]
-    assert smoke.polish_agreement(args, bad, p)[1]
+    assert checks.polish_agreement(args, bad, p)[1]
 
 
 def test_smoke_polish_parts_counts_one_launch_a_part_of_each_chunk():
     """The polish launches the smoke expects of a pairwise sweep: one a
     chunk, or one a shard of each chunk grown with the mesh."""
-    smoke = _smoke()
-    assert smoke.polish_parts(1128, 128) == 9 and smoke.polish_parts(1770, 128) == 14
-    assert smoke.polish_parts(1128, 128, 2) == 18 and smoke.polish_parts(1128, 128, 4) == 36
-    assert smoke.polish_parts(3, 128, 4) == 3 and smoke.polish_parts(0, 128) == 0
-    assert smoke.polish_parts(100, 64, 16) == 16          # a chunk of 128 on 16 shards
+    assert checks.polish_parts(1128, 128) == 9 and checks.polish_parts(1770, 128) == 14
+    assert checks.polish_parts(1128, 128, 2) == 18 and checks.polish_parts(1128, 128, 4) == 36
+    assert checks.polish_parts(3, 128, 4) == 3 and checks.polish_parts(0, 128) == 0
+    assert checks.polish_parts(100, 64, 16) == 16          # a chunk of 128 on 16 shards

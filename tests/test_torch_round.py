@@ -3,17 +3,18 @@ the kernel's reference) is the solve → score → masked keep the engines ran
 before it, bit for bit, and both engines go through the one round entry
 point (`_round`); the dispatch by device (CPU tensors never reach the
 kernel; its wrapper refuses them, and wrong types, shapes and layouts);
-the `round_launches` count of `estimate_pairwise`; and the smoke's round
-inputs, agreement checks and operation count. The kernel itself is held
-to the plain round on the card by tests/test_torch_cuda_round.py."""
+the `round_launches` count of `estimate_pairwise`; and the round's
+contract in `eval/kernel_checks.py` (its inputs, agreement checks and
+operation count), which the smoke holds the kernel to. The kernel itself
+is held to the plain round on the card by tests/test_torch_cuda_round.py."""
 
-import importlib.util
 import math
 import os
 
 import pytest
 import torch
 
+from sphericalsfm_tpu_torch.eval import kernel_checks as checks
 from sphericalsfm_tpu_torch.eval.experiments import _contaminate
 from sphericalsfm_tpu_torch.eval.synthetic import make_random_problems
 from sphericalsfm_tpu_torch.pipeline import pairwise as pw
@@ -25,14 +26,6 @@ from sphericalsfm_tpu_torch.solvers.spherical import solve_spherical_3pt
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SQ = (2.0 / 600) ** 2
-
-
-def _smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _problems(B=16, N=128, seed=0, outliers=0.4):
@@ -186,14 +179,45 @@ def test_estimate_pairwise_counts_round_launches():
             assert res.counts["round_launches"] == 0 and res.counts["rounds"] >= 6
 
 
+@pytest.mark.parametrize("engine", ["adaptive", "static", "five_point"])
+def test_pairwise_record_keys_follow_the_engine(engine):
+    """Each engine's `estimate_pairwise` record, from the engine its entry
+    point ran and not from its results: `chunks` always; the polish's
+    counts for the spherical engines; the rounds and their launches for
+    the adaptive one. No pair gives no chunk and no other key."""
+    from tests.test_torch_polish import _sweep
+
+    xy, pi, pj, idx0, idx1, mm, intr = _sweep()
+    keys = {"adaptive": {"chunks", "polish_iters", "polish_accept_pct", "rounds", "active_pct",
+                         "round_launches"},
+            "static": {"chunks", "polish_iters", "polish_accept_pct"},
+            "five_point": {"chunks"}}[engine]
+
+    def run(P):
+        gen = torch.Generator().manual_seed(0)
+        args = (xy, pi[:P], pj[:P], idx0[:P], idx1[:P], mm[:P], intr)
+        if engine == "five_point":
+            return pw.estimate_pairwise_five_point(gen, *args, min_num_inliers=20,
+                                                   num_hypotheses=32, chunk_size=10,
+                                                   device="cpu")
+        return pw.estimate_pairwise(gen, *args, min_num_inliers=20, chunk_size=10,
+                                    num_hypotheses=256, adaptive=engine == "adaptive",
+                                    device="cpu")
+
+    res = run(len(pi))
+    assert set(res.counts) == keys and res.counts["chunks"] == -(-len(pi) // 10)
+    assert res.r.shape == (len(pi), 3) and res.inlier_mask.shape == mm.shape
+    empty = run(0)
+    assert empty.counts == {"chunks": 0} and empty.r.shape == (0, 3)
+
+
 def test_round_flops_hand_count():
     """The operation count behind the kernel's FP64 bound at one small
     shape: 2 active pairs with 10 and 20 valid matches, 2 triples each, a
     row of 32 matches, one pair keeping its round's best."""
-    smoke = _smoke()
-    flops = smoke.round_flops(torch.tensor([10, 20]), 2, 32, kept=1)
+    flops = checks.round_flops(torch.tensor([10, 20]), 2, 32, kept=1)
     assert flops == 2 * 2 * 6140 + 4 * 2 * 30 * 38 + 32 * 37
-    assert smoke.round_flops([1024] * 128, 128, 1024) == 128 * (128 * 6140 + 512 * 1024 * 38)
+    assert checks.round_flops([1024] * 128, 128, 1024) == 128 * (128 * 6140 + 512 * 1024 * 38)
 
 
 def test_smoke_round_inputs():
@@ -201,8 +225,7 @@ def test_smoke_round_inputs():
     CPU: shapes, types and layouts the kernel takes, ragged masks, junk in
     the masked rows, a running best from a first round, a mixed active
     flag, triples drawn from the valid rows."""
-    smoke = _smoke()
-    args = smoke.round_inputs(8, 16, 96, device="cpu")
+    args = checks.round_inputs(8, 16, 96, device="cpu")
     triples, u, v, mask, E, score, inliers, active, sq = args
     assert triples.shape == (8, 16, 3) and triples.dtype == torch.int64
     assert u.shape == v.shape == (8, 96, 3) and E.shape == (8, 3, 3)
@@ -216,11 +239,11 @@ def test_smoke_round_inputs():
     assert drawn[valid >= 3].all() and sq == SQ
 
 
-def _plain_round_outputs(smoke, args):
+def _plain_round_outputs(args):
     triples, u, v, mask, E, score, inliers, active, sq = args
     part = sph._Part(u, v, mask, E, score, inliers)
     p = sph._round_plain(part, triples, active, sq)
-    pc = smoke.round_plain_candidates(args)
+    pc = checks.round_plain_candidates(args)
     return p, pc
 
 
@@ -228,16 +251,15 @@ def _plain_round_outputs(smoke, args):
                                    "inactive", "validity", "root", "epipolar"])
 def test_smoke_round_agreement_catches_a_wrong_round(fault):
     """The smoke's round phase holds the kernel to the plain round with
-    `round_agreement`: the plain round against itself passes, and each
+    `kernel_checks.round_agreement`: the plain round against itself passes, and each
     fault a kernel could make (here applied to the plain round's own
     outputs on the CPU) fails it."""
     from sphericalsfm_tpu_torch.ransac.round_kernel import RoundCandidates, RoundResult
 
-    smoke = _smoke()
-    args = smoke.round_inputs(6, 16, 96, device="cpu", active_share=0.7, seed=1)
+    args = checks.round_inputs(6, 16, 96, device="cpu", active_share=0.7, seed=1)
     active = args[7]
-    p, pc = _plain_round_outputs(smoke, args)
-    sens = smoke.round_sensitivity(args)
+    p, pc = _plain_round_outputs(args)
+    sens = checks.round_sensitivity(args)
     k = RoundResult(p.E, p.score, p.inliers)
     kc = RoundCandidates(*pc)
     a = int(torch.nonzero(active & (p.score < args[5]))[0, 0])   # an active pair that kept
@@ -268,8 +290,8 @@ def test_smoke_round_agreement_catches_a_wrong_round(fault):
     elif fault in ("root", "epipolar"):
         # scored as a kernel would score its own candidates; few enough
         # that the percentiles of the candidates' distances do not move
-        rE = smoke.candidate_residuals(args, pc[0])[1]
-        root = smoke.ROUND_ROOT_EPS * torch.finfo(torch.float64).eps
+        rE = checks.candidate_residuals(args, pc[0])[1]
+        root = checks.ROUND_ROOT_EPS * torch.finfo(torch.float64).eps
         ok = active[:, None] & pc[1] & (rE <= root)
         ok[torch.arange(6), torch.argmin(pc[2], -1)] = False
         picked = torch.nonzero(ok).tolist()
@@ -281,13 +303,13 @@ def test_smoke_round_agreement_catches_a_wrong_round(fault):
         else:                       # a solution of another pair's triple
             (b, c), src = picked[0], next(x for x in picked if x[0] != picked[0][0])
             E[b, c] = E[tuple(src)]
-        kc = kc._replace(E=E, score=smoke.candidate_scores(args, E, kc.valid))
-    info, failures = smoke.round_agreement(args, k, kc, p, pc, sens)
+        kc = kc._replace(E=E, score=checks.candidate_scores(args, E, kc.valid))
+    info, failures = checks.round_agreement(args, k, kc, p, pc, sens)
     if fault == "none":
         assert failures == [] and info["kept"] > 0 and info["active"] < 6
         assert info["E_gap_max"] == 0 and max(info["plain_move_quantiles"]) > 0
         assert info["roots_lost"] == info["witness_roots_lost"] == 0
-        assert 0 < info["epipolar_max"] <= smoke.ROUND_EPIPOLAR_EPS * 2.3e-16
+        assert 0 < info["epipolar_max"] <= checks.ROUND_EPIPOLAR_EPS * 2.3e-16
     else:
         assert failures, info
     if fault == "root":

@@ -1,23 +1,18 @@
 """The matcher's measurement tools on the CPU: the bounds that
-chip_smoke.py reports beside the kernels' times, and the bit-for-bit
-comparison of two float32 dumps in scripts/bench_two_nn.py (the check that
-holds the float32 kernel to its first version's outputs)."""
+chip_smoke.py reports beside the kernels' times (`eval/kernel_checks.py`),
+and the bit-for-bit comparison of two float32 dumps in
+scripts/bench_two_nn.py (the check that holds the float32 kernel to its
+first version's outputs)."""
 
-import importlib.util
 import os
 
 import numpy as np
 import pytest
 import torch
 
+from sphericalsfm_tpu_torch.eval import kernel_checks as checks
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _load(name, path):
-    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, path))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 @pytest.mark.parametrize("K,f32_ms,bf16_ms", [(1024, 0.12821, 0.0086855),
@@ -25,19 +20,19 @@ def _load(name, path):
 def test_bounds_at_the_smoke_shapes(K, f32_ms, bf16_ms):
     """32 pairs of distinct frames: 2·P·K²·128 operations at 67 TFLOP/s
     (float32) and 989 TFLOP/s (bf16); both far above their bytes' time."""
-    smoke = _load("chip_smoke", "chip_smoke.py")
     desc = torch.zeros(1, 1, 1).expand(64, K, 128)   # shape only, no memory
     pi, pj = torch.arange(32), torch.arange(32) + 32
-    ms, by = smoke.two_nn_f32_bound(desc, None, pi, pj)
+    ms, by = checks.two_nn_f32_bound(desc, None, pi, pj)
     assert by == "operations" and ms == pytest.approx(f32_ms, rel=1e-4)
-    ms, by = smoke.two_nn_bound(desc, None, pi, pj)
+    ms, by = checks.two_nn_bound(desc, None, pi, pj)
     assert by == "operations" and ms == pytest.approx(bf16_ms, rel=1e-4)
 
 
-def test_dump_comparison_is_bit_for_bit(tmp_path):
+def test_dump_comparison_is_bit_for_bit(tmp_path, monkeypatch):
     """Equal dumps pass; 0.0 against -0.0, equal as numbers, fails; two
     directories that share no shape fail."""
-    bench = _load("bench_two_nn", "scripts/bench_two_nn.py")
+    monkeypatch.syspath_prepend(os.path.join(ROOT, "scripts"))
+    import bench_two_nn as bench
     rng = np.random.default_rng(0)
     out = dict(m1=rng.uniform(size=(4, 8)).astype(np.float32),
                m2=rng.uniform(size=(4, 8)).astype(np.float32),
